@@ -8,22 +8,30 @@ Phases, each printing its seconds:
 1. device   require CUDA, print the card's name and power limit, and turn
             TF32 off for float32 matmuls and cuDNN convolutions;
 2. build    compile the CUDA kernels with nvcc for sm_90a from the
-            repository's sources (src/repro_torch/kernels/csrc), and read
-            from their SASS the instructions each body spends per operand
-            pair (the operation counts of the bounds);
+            repository's sources (src/repro_torch/kernels/csrc, one nvcc
+            per source, in parallel), read from their SASS the
+            instructions the CUDA-core bodies spend per operand pair (the
+            operation counts of their bounds), and require int8
+            tensor-core instructions in the tensor-core kernel's SASS;
 3. kernels  hold every kernel entry and variant to its plain PyTorch
             version on the card, bitwise: all 256 x 256 int8 byte pairs at
-            K = 1 against the numpy product tables, ragged and batched
-            shapes across the tile seams, and the LeNet-5 and FFDNet layer
-            shapes; hold every backend's int32 output to the JAX package's
-            (src/repro_torch/testdata/reference.npz); time each entry;
+            K = 1 against the numpy product tables (rank1 for the proposed
+            design and design13), ragged and batched shapes across the
+            tile seams of both kernels (K past one staged x slab of the
+            tensor-core kernel too), and the LeNet-5, Keras CNN and FFDNet
+            layer shapes; hold every backend's int32 output to the JAX
+            package's (src/repro_torch/testdata/reference.npz); time each
+            entry (fused_matmul[exact] in turns with torch._int_mm), its
+            kernel's device time under torch.profiler, and for the
+            tensor-core entries the build of their weight operands;
 4. lenet5   eval_classifier on 500 synthetic digits with the fixture's
             JAX-trained weights under bf16, int8_exact and every approx
             backend: each CUDA backend's accuracy equals its oracle's, the
             deficit kernel's logits equal approx_lut's bit for bit, the
             unfused route (kernels K1, K3) equals the fused one bit for bit,
             and the oracles' accuracies equal the JAX package's; one
-            batch's forward timed and traced as in phase 5;
+            batch's forward timed and traced as in phase 5; the Keras CNN
+            (random weights) under each CUDA backend equals its oracle;
 5. ffdnet   eval_denoiser on 16 64x64 textures at sigma 25 with the
             full-width FFDNet (depth 8, width 64) under the three CUDA
             backends, fused and unfused, and their oracles: outputs equal
@@ -37,6 +45,7 @@ non-zero and prints no result. It imports nothing of JAX.
 """
 from __future__ import annotations
 
+import functools
 import json
 import re
 import statistics
@@ -50,7 +59,8 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 FIXTURE = ROOT / "src" / "repro_torch" / "testdata" / "reference.npz"
 DETAIL = ROOT / "build" / "chip_smoke_detail.json"
-SOURCE = "src/repro_torch/kernels/csrc/approx_matmul.cu"
+CUDA_CORE_SOURCE = "src/repro_torch/kernels/csrc/approx_matmul.cu"
+TC_SOURCE = "src/repro_torch/kernels/csrc/tc_matmul.cu"
 
 # Published H100 SXM rates, at the 700 W limit (NVIDIA data sheet): device
 # memory, int8 tensor cores. The data sheet gives no rate for 32-bit
@@ -80,6 +90,16 @@ ROWS = (
     ("rank1_fused_matmul", "rank1",
      "src/repro/kernels/approx_matmul.py:428"),
 )
+TC_VARIANTS = ("exact", "rank1")      # bodies of the tensor-core kernel
+# Tile seams of the tensor-core kernel: 64-row warpgroups in 128-row
+# blocks, 8-column MMA tiles and block widths 8/16/32/64, 32-byte MMA steps
+# over K and over K * R, K past one staged x slab (1,024 columns), and
+# rows of 1, 4 and 16-byte multiples (its three copy widths).
+TC_SEAMS = {"seam(65,25,4)": (1, 65, 25, 4), "seam(129,45,9)": (1, 129, 45, 9),
+            "seam(2x65,150,8)": (2, 65, 150, 8),
+            "seam(129,25,33)": (1, 129, 25, 33),
+            "seam(129,2051,9)": (1, 129, 2051, 9),
+            "seam(65,1300,17)": (1, 65, 1300, 17)}
 # The variants the main path (phases 4-5) must launch: no caller of the
 # JAX package (nor of the port) selects fused_matmul's "exact" variant.
 PATH_VARIANTS = [r[:2] for r in ROWS if r[1] != "exact"]
@@ -88,9 +108,13 @@ LENET_LAYERS = {  # (B, M, K, N) of each quantized matmul at batch 50
     "lenet5.c1": (50, 784, 25, 6), "lenet5.c2": (50, 196, 150, 16),
     "lenet5.fc1": (1, 50, 784, 120), "lenet5.fc2": (1, 50, 120, 84),
     "lenet5.fc3": (1, 50, 84, 10)}
+KERAS_LAYERS = {  # the Keras CNN (models/cnn.py) at batch 50
+    "keras.c1": (50, 784, 9, 32), "keras.c2": (50, 196, 288, 64),
+    "keras.fc1": (1, 50, 3136, 128), "keras.fc2": (1, 50, 128, 10)}
 FFDNET_LAYERS = {  # 16 images of 64x64 -> 32x32 after pixel_unshuffle
     "ffdnet.in": (16, 1024, 45, 64), "ffdnet.mid": (16, 1024, 576, 64),
     "ffdnet.out": (16, 1024, 576, 4)}
+LAYERS = {**LENET_LAYERS, **KERAS_LAYERS, **FFDNET_LAYERS}
 TIMED_LAYER = "ffdnet.mid"
 FORWARD_REPS = 10
 
@@ -152,10 +176,16 @@ def main() -> int:
         for ln in regs:
             print(f"  {ln}")
         detail["ptxas"] = regs
-        ops = sass_ops_per_pair(K, lib)
+        from repro_torch.kernels import sass as SASS
+        sass = SASS.dump(lib)
+        ops = sass_ops_per_pair(K, sass)
         detail["ops_per_pair_sass"] = ops
         print("instructions per pair that combine x and w (SASS): "
               + ", ".join(f"{k} {v:g}" for k, v in ops.items()))
+        detail["tc_mma_sass"] = tc_mma_count(sass)
+        print("int8 tensor-core instructions in tc_mm_kernel (SASS): "
+              + ", ".join(f"{k} {v}" for k, v in
+                          detail["tc_mma_sass"].items()))
 
     with Phase("kernels"):
         rows = kernels_phase(torch, K, detail, ops)
@@ -194,16 +224,17 @@ def main() -> int:
 # Phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-def _call(K, name, variant, x, w, scale, bias, relu, plain):
+def _call(K, name, variant, x, w, scale, bias, relu, plain,
+          design="proposed"):
     """One entry/variant, kernel or plain version (same arguments)."""
     fn = getattr(K, f"{name}_plain" if plain else name)
     if name == "approx_matmul":
-        return fn(x.reshape(-1, x.shape[-1]), w, kernel=variant)
+        return fn(x.reshape(-1, x.shape[-1]), w, design, kernel=variant)
     if name == "fused_matmul":
-        return fn(x, w, scale, bias, variant=variant, relu=relu)
+        return fn(x, w, scale, bias, design, variant=variant, relu=relu)
     if name == "rank1_matmul":
-        return fn(x.reshape(-1, x.shape[-1]), w)
-    return fn(x, w, scale, bias, relu=relu)           # rank1_fused_matmul
+        return fn(x.reshape(-1, x.shape[-1]), w, design)
+    return fn(x, w, scale, bias, design, relu=relu)   # rank1_fused_matmul
 
 
 def _operands(torch, gen, b, m, k, n, dev):
@@ -229,40 +260,78 @@ def _ms(torch, fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def _ms_turns(torch, f, g, reps: int) -> tuple:
+    """Kernel-event ms of ``f`` and ``g`` timed in turns (f, g, g, f),
+    each the mean of its two turns."""
+    a1, b1, b2, a2 = (_ms(torch, h, reps) for h in (f, g, g, f))
+    return (a1 + a2) / 2, (b1 + b2) / 2
+
+
+def _device_ms(torch, calls, reps: int) -> list:
+    """Mean device ms of the port's kernel in ``reps`` runs of each of
+    ``calls``, from one torch.profiler session; each run must launch
+    exactly one. One stream runs the kernels in launch order, so the
+    session's spans fall into the calls' groups in order."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for fn in calls:
+            for _ in range(reps):
+                fn()
+        torch.cuda.synchronize()
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == DeviceType.CUDA and _ours(e.name))
+    check(len(spans) == reps * len(calls),
+          f"{len(spans)} kernel spans in {reps * len(calls)} calls")
+    return [sum(hi - lo for lo, hi in spans[i:i + reps]) / reps / 1e3
+            for i in range(0, len(spans), reps)]
+
+
+def _ours(name: str) -> bool:
+    return "approx_mm_kernel" in name or "tc_mm_kernel" in name
+
+
 def _max_err(a, b) -> float:
     return float((a.double() - b.double()).abs().max()) if a.numel() else 0.
 
 
-def _bound(name, variant, rows, k, n, r1, ops) -> tuple:
+def _bound(name, variant, rows, k, n, fac, ops) -> tuple:
     """(bound_ms, bound_by): the larger of the operand/result bytes over
-    the memory rate and the operations over the card's rate for them."""
+    the memory rate and the operations over the card's rate for them.
+    EXACT is one int8 MAC per pair and RANK1 1 + R * nd (the exact dot and
+    one per factor and digit plane), on the int8 tensor cores; its bytes
+    count the weight planes the wrapper builds (nd * K * R * N) in place
+    of w's own. The CUDA-core bodies count their SASS instructions per
+    pair over the issue rate."""
     fused = name in ("fused_matmul", "rank1_fused_matmul")
     nbytes = rows * k + k * n + rows * n * 4 + (2 * n * 4 if fused else 0)
     macs = rows * k * n
     if variant == "exact":
         t_ops = 2 * macs / INT8_TC_OPS_PER_S
+    elif variant == "rank1":
+        t_ops = 2 * macs * (1 + fac.R * fac.n_digits) / INT8_TC_OPS_PER_S
+        nbytes += fac.n_digits * k * fac.R * n
     else:
         t_ops = macs * ops[variant] / INT_ISSUE_OPS_PER_S
-    if variant == "rank1":
-        nbytes += 256 * r1 * 5          # the factor tables
     t_bytes = nbytes / HBM_BYTES_PER_S
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
 
 
-def sass_ops_per_pair(K, lib) -> dict:
-    """Per body, the integer instructions per (x, w) pair that combine the
-    two operands, counted in the built kernels' SASS (kernels/sass.py):
-    the work per multiply-accumulate no operand reuse removes. Deficit is
-    the proposed design's instantiation; rank1 is the exact product plus
-    R factors of its inner loop."""
-    from repro_torch.core import factor as F
+def sass_ops_per_pair(K, sass) -> dict:
+    """Per CUDA-core body, the integer instructions per (x, w) pair that
+    combine the two operands, counted in the built kernels' SASS
+    (kernels/sass.py): the work per multiply-accumulate no operand reuse
+    removes. Deficit is the proposed design's instantiation."""
     from repro_torch.kernels import codegen
     from repro_torch.kernels import sass as SASS
     src = K.SOURCE.read_text()
     tile = tuple(int(re.search(rf"constexpr int {t} = (\d+);", src)
                      .group(1)) for t in ("TM", "TN"))
-    fns = SASS.functions(SASS.dump(lib))
+    fns = SASS.functions(sass)
 
     def per_pair(body, design=0, loads_per_operand=1):
         tag = f"approx_mm_kernelILi{body}ELi{design}EE"
@@ -271,14 +340,27 @@ def sass_ops_per_pair(K, lib) -> dict:
         return SASS.ops_per_pair(SASS.inner_loop(fns[name[0]]), tile,
                                  loads_per_operand)
 
-    exact = per_pair(K._BODY["exact"])
     return {
-        "exact": exact,
         "deficit": per_pair(K._BODY["deficit"],
                             codegen.designs().index("proposed")),
-        "stage1": per_pair(K._BODY["stage1"], loads_per_operand=2),
-        "rank1": exact + F.factorize("proposed").R
-        * per_pair(K._BODY["rank1"])}
+        "stage1": per_pair(K._BODY["stage1"], loads_per_operand=2)}
+
+
+def tc_mma_count(sass) -> dict:
+    """Int8 tensor-core instructions (IGMMA, the int8 wgmma; IMMA under
+    mma.sync) in each instantiation of tc_mm_kernel; fails unless every
+    one has some."""
+    from repro_torch.kernels import sass as SASS
+    fns = {f: ins for f, ins in SASS.functions(sass).items()
+           if "tc_mm_kernel" in f}
+    check(len(fns) > 0, "no tc_mm_kernel in the SASS")
+    out = {}
+    for f, ins in sorted(fns.items()):
+        n = sum(i.opcode.startswith(("IMMA", "IGMMA")) for i in ins)
+        check(n > 0, f"{f}: no int8 tensor-core instruction in its SASS")
+        body, bn = re.search(r"tc_mm_kernelILi(\d+)ELi(\d+)E", f).groups()
+        out[f"tc_mm_kernel<{body},{bn}>"] = n
+    return out
 
 
 def kernels_phase(torch, K, detail, ops):
@@ -290,7 +372,7 @@ def kernels_phase(torch, K, detail, ops):
 
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(0)
-    r1 = F.factorize("proposed").R
+    fac = F.factorize("proposed")
 
     # all 256 x 256 byte pairs at K = 1 against the numpy tables
     b = torch.arange(256, dtype=torch.int32).to(torch.int8)
@@ -311,7 +393,16 @@ def kernels_phase(torch, K, detail, ops):
         check(torch.equal(out.double().cpu(), want),
               f"{name}[{var}] differs from the product table on 2^16 pairs")
         pairs_ok[(name, var)] = True
-    print("all 2^16 byte pairs match the product tables for every entry")
+    lut13 = luts.signed_product_lut(proposed_multiplier("design13"))
+    for name in ("rank1_matmul", "rank1_fused_matmul"):
+        out = _call(K, name, "rank1", xs, ws, one, zero, False, False,
+                    design="design13")
+        check(torch.equal(out.double().cpu(),
+                          torch.as_tensor(lut13.astype(np.float64))),
+              f"{name}[design13] differs from its product table on 2^16 "
+              "pairs")
+    print("all 2^16 byte pairs match the product tables for every entry "
+          "(and rank1 under design13)")
 
     # fixture: every backend's int32 output equals the JAX package's
     with np.load(FIXTURE) as data:
@@ -333,26 +424,30 @@ def kernels_phase(torch, K, detail, ops):
     shapes = {"ragged(1000,577,65)": (1, 1000, 577, 65),
               "ragged(3,1,1)": (1, 3, 1, 1),
               "batched(4,333,150,70)": (4, 333, 150, 70),
-              **LENET_LAYERS, **FFDNET_LAYERS}
+              **TC_SEAMS, **LAYERS}
     errs = {r[:2]: 0.0 for r in ROWS}
-    per_layer = []
+    per_layer, timed = [], []
     for label, (bb, m, k, n) in shapes.items():
         x, w, scale, bias = _operands(torch, gen, bb, m, k, n, dev)
         for name, var, _ in ROWS:
+            designs = (("proposed", "design13") if var == "rank1"
+                       and label in TC_SEAMS else ("proposed",))
             for relu in ((False, True) if "fused" in name else (False,)):
-                got = _call(K, name, var, x, w, scale, bias, relu, False)
-                want = _call(K, name, var, x, w, scale, bias, relu, True)
-                err = _max_err(got, want)
-                errs[(name, var)] = max(errs[(name, var)], err)
-                check(got.dtype == want.dtype and torch.equal(got, want),
-                      f"{name}[{var}] relu={relu} differs from its plain "
-                      f"version at {label}: max |diff| {err}")
-            if label in LENET_LAYERS or label in FFDNET_LAYERS:
-                kms = _ms(torch, lambda: _call(K, name, var, x, w, scale,
-                                               bias, False, False), 5)
+                for design in designs:
+                    args = (K, name, var, x, w, scale, bias, relu)
+                    got = _call(*args, False, design)
+                    want = _call(*args, True, design)
+                    err = _max_err(got, want)
+                    errs[(name, var)] = max(errs[(name, var)], err)
+                    check(got.dtype == want.dtype and torch.equal(got, want),
+                          f"{name}[{var}] {design} relu={relu} differs from "
+                          f"its plain version at {label}: max |diff| {err}")
+            if label in LAYERS:
+                kern = functools.partial(_call, K, name, var, x, w, scale,
+                                         bias, False, False)
                 pms = _ms(torch, lambda: _call(K, name, var, x, w, scale,
                                                bias, False, True), 2)
-                lib = None
+                lib = operands_ms = None
                 if var == "exact" and k % 8 == 0 and n % 8 == 0 \
                         and bb * m > 16:
                     x2 = x.reshape(-1, k)
@@ -363,19 +458,35 @@ def kernels_phase(torch, K, detail, ops):
                     check(torch.equal(acc, ref.float()),
                           f"fused_matmul[exact] differs from torch._int_mm "
                           f"at {label}")
-                    lib = _ms(torch, lambda: torch._int_mm(x2, w), 5)
-                bound, by = _bound(name, var, bb * m, k, n, r1, ops)
+                    kms, lib = _ms_turns(torch, kern,
+                                         lambda: torch._int_mm(x2, w), 5)
+                else:
+                    kms = _ms(torch, kern, 5)
+                if var == "exact":
+                    operands_ms = _ms(torch,
+                                      lambda: K.exact_weight_operand(w), 5)
+                elif var == "rank1":
+                    operands_ms = _ms(torch, lambda: (
+                        K.exact_weight_operand(w),
+                        K.rank1_weight_planes(w)), 5)
+                bound, by = _bound(name, var, bb * m, k, n, fac, ops)
+                timed.append(kern)
                 per_layer.append({
                     "layer": label, "entry": name, "variant": var,
                     "shape": [bb, m, k, n], "kernel_ms": kms,
                     "plain_ms": pms, "library_ms": lib,
+                    "operands_ms": operands_ms,
                     "bound_ms": bound, "bound_by": by})
         print(f"  {label}: every entry equals its plain version")
+    for row, ms in zip(per_layer, _device_ms(torch, timed, 5)):
+        row["device_ms"] = ms
     detail["per_layer"] = per_layer
     for row in per_layer:
         print(f"  {row['layer']:12s} {row['entry']}[{row['variant']}] "
               f"kernel {row['kernel_ms']:.4f} ms  plain "
               f"{row['plain_ms']:.2f} ms  library {row['library_ms']}  "
+              f"device {row['device_ms']:.4f} ms  "
+              f"operands {row['operands_ms']}  "
               f"bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
 
     rows = []
@@ -383,12 +494,16 @@ def kernels_phase(torch, K, detail, ops):
         t = next(r for r in per_layer if r["layer"] == TIMED_LAYER
                  and r["entry"] == name and r["variant"] == var)
         rows.append({
-            "name": f"{name}[{var}]", "route": "cuda", "source": SOURCE,
+            "name": f"{name}[{var}]", "route": "cuda",
+            "source": TC_SOURCE if var in TC_VARIANTS else CUDA_CORE_SOURCE,
             "replaces": replaces, "launches": None,
             "max_abs_err": errs[(name, var)], "ms": t["kernel_ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
             "shape": t["shape"], "pairs_2e16_ok": pairs_ok[(name, var)],
+            "device_ms": t["device_ms"],
+            **({"operands_ms": t["operands_ms"]}
+               if var in TC_VARIANTS else {}),
             "_entry": name, "_variant": var})
     return rows
 
@@ -413,7 +528,8 @@ def _forward_ms(torch, run, reps: int) -> list:
 def _profile_ms(torch, run) -> dict:
     """One call of ``run`` under torch.profiler: its host ms (profiler on),
     the ms in which the card ran anything (kernels, copies, fills; the
-    union of their spans) and the ms of the approx_mm kernels."""
+    union of their spans) and the ms of the port's kernels (approx_mm and
+    tc_mm)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -430,7 +546,7 @@ def _profile_ms(torch, run) -> dict:
     for lo, hi, _ in spans:
         busy += max(0.0, hi - max(lo, end))
         end = max(end, hi)
-    ours = sum(hi - lo for lo, hi, name in spans if "approx_mm_kernel" in name)
+    ours = sum(hi - lo for lo, hi, name in spans if _ours(name))
     return {"wall_ms": wall, "device_busy_ms": busy / 1e3,
             "kernels_ms": ours / 1e3}
 
@@ -444,7 +560,7 @@ def _time_forward(torch, forward, label: str) -> dict:
     print(f"    {label}: median {med:.3f} ms, min {min(ms):.3f}, max "
           f"{max(ms):.3f} over {FORWARD_REPS}; profiled: card busy "
           f"{prof['device_busy_ms']:.3f} ms of {prof['wall_ms']:.3f} ms, "
-          f"approx_mm kernels {prof['kernels_ms']:.3f} ms")
+          f"port kernels {prof['kernels_ms']:.3f} ms")
     return {"forward_ms": ms, "forward_ms_median": med, **prof}
 
 
@@ -520,6 +636,21 @@ def lenet5_phase(torch, detail):
               f"accuracy equals JAX's {acc[be]:.1f}%")
     print("  CUDA backends: accuracy equals the oracle's; logits bitwise "
           "equal to the oracle's; unfused (K1, K3) == fused (K2, K4)")
+    # the Keras CNN (random weights from a seed): its fc1 contracts over
+    # K = 3,136, more than one x slab of the tensor-core kernel
+    from repro_torch.nn.module import init_params
+    keras = init_params(CNN.keras_cnn_descs(),
+                        torch.Generator().manual_seed(0), device="cuda")
+    with torch.inference_mode():
+        for be in CUDA_BACKENDS:
+            q = QuantConfig(backend=be)
+            got = CNN.keras_cnn_apply(keras, batch, q)
+            want = CNN.keras_cnn_apply(
+                keras, batch, QuantConfig(backend=QM.get_backend(be).oracle))
+            check(got.shape == (50, 10) and torch.equal(got, want),
+                  f"{be}: Keras CNN logits differ from its oracle's")
+    print("  Keras CNN, batch of 50: every CUDA backend's logits bitwise "
+          "equal to its oracle's")
     detail["lenet5_acc"] = acc
     detail["lenet5_forward"] = times
 

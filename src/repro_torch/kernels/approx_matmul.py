@@ -1,8 +1,9 @@
 """CUDA kernels for approximate-multiplier matmuls, with their plain versions.
 
 Four entries, one per Pallas entry of the JAX package
-(src/repro/kernels/approx_matmul.py), all served by the one kernel template
-in csrc/approx_matmul.cu:
+(src/repro/kernels/approx_matmul.py). The DEFICIT and STAGE1 bodies run on
+the CUDA cores (csrc/approx_matmul.cu); the EXACT and RANK1 bodies on the
+int8 tensor cores (csrc/tc_matmul.cu):
 
 ``approx_matmul``        K1: (M, K) x (K, N) int8 -> (M, N) int32;
                          ``kernel`` = 'deficit' | 'stage1'.
@@ -18,8 +19,13 @@ in ``launches`` (an int) and ``variant_launches`` (per body variant); the
 plain versions count nothing.
 
 The kernel library is built with nvcc for sm_90a at first use, into
-``build/kernels/`` at the repository root, from csrc/ and the deficit
-functions that codegen.py writes beside it.
+``build/kernels/`` at the repository root, from every source in csrc/ and
+the deficit functions that codegen.py writes beside them.
+
+The tensor-core kernel takes its B operands K-major;
+``exact_weight_operand`` and ``rank1_weight_planes`` build them per call
+with plain torch ops, as the reference gathers its features per call
+outside its ``pallas_call``. The kernel pads them to its tiles itself.
 """
 from __future__ import annotations
 
@@ -46,9 +52,10 @@ _HERE = Path(__file__).resolve().parent
 SOURCE = _HERE / "csrc" / "approx_matmul.cu"
 BUILD_DIR = _HERE.parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_BODY = {"exact": 0, "deficit": 1, "stage1": 2, "rank1": 3}
+_BODY = {"deficit": 0, "stage1": 1}          # approx_mm_launch
+_TC_BODY = {"exact": 0, "rank1": 1}          # tc_mm_launch
 _OUT_INT32, _OUT_F32, _OUT_F32_RELU = 0, 1, 2
 
 
@@ -70,22 +77,40 @@ def _nvcc() -> str:
 
 def build() -> Tuple[Path, str]:
     """Compile the kernel library if its sources changed; returns the
-    library's path and the compiler's report (registers, shared memory)."""
+    library's path and the compiler's report (registers, shared memory).
+    One nvcc per source, all started together, then one link."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     header = codegen.write_header(BUILD_DIR)
-    digest = hashlib.sha256(SOURCE.read_bytes() + header.read_bytes()
+    srcs = sorted((_HERE / "csrc").glob("*.cu"))
+    digest = hashlib.sha256(b"".join(p.read_bytes() for p in srcs)
+                            + header.read_bytes()
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     lib = BUILD_DIR / f"libapprox_matmul_{digest}.so"
     log = BUILD_DIR / f"libapprox_matmul_{digest}.log"
     if not lib.exists():
+        tag = f"{digest}.{os.getpid()}"
+        objs = [BUILD_DIR / f"{p.stem}.{tag}.o" for p in srcs]
+        procs = [subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, "-I", str(BUILD_DIR), "-c", "-o",
+             str(o), str(p)], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)
+            for p, o in zip(srcs, objs)]
+        outs = [pr.communicate()[0] for pr in procs]
         tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(BUILD_DIR), "-o", str(tmp),
-               str(SOURCE)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{proc.stdout}\n{proc.stderr}")
-        log.write_text(proc.stdout + proc.stderr)
+        if all(pr.returncode == 0 for pr in procs):
+            link = subprocess.run([_nvcc(), "-shared", "-o", str(tmp),
+                                   *map(str, objs)],
+                                  capture_output=True, text=True)
+            outs.append(link.stdout + link.stderr)
+            failed = link.returncode
+        else:
+            failed = next(pr.returncode for pr in procs if pr.returncode)
+        for o in objs:
+            o.unlink(missing_ok=True)
+        if failed:
+            raise RuntimeError(f"nvcc failed ({failed}):\n"
+                               + "\n".join(outs))
+        log.write_text("\n".join(outs))
         os.replace(tmp, lib)
     return lib, log.read_text() if log.exists() else ""
 
@@ -93,22 +118,79 @@ def build() -> Tuple[Path, str]:
 @functools.lru_cache(maxsize=1)
 def _lib() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build()[0]))
-    fn = lib.approx_mm_launch
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [i, i, p, p, i, i, i, p, p, i, p, p, i, p, p]
-    fn.restype = ctypes.c_int
+    lib.approx_mm_launch.argtypes = [i, i, p, p, i, i, i, p, p, i, p, p]
+    lib.approx_mm_launch.restype = ctypes.c_int
+    lib.tc_mm_launch.argtypes = [i, p, p, p, p, i, i, i, i, i, i, p, p, i,
+                                 p, p]
+    lib.tc_mm_launch.restype = ctypes.c_int
     return lib
+
+
+# ---------------------------------------------------------------------------
+# Tensor-core operands (plain torch; built per call on the operand's device)
+# ---------------------------------------------------------------------------
+
+def rank1_r_pad(r: int) -> int:
+    """R padded to a multiple of 4: a fragment register's 4 features are
+    then 4 factors of one operand."""
+    return -(-r // 4) * 4
+
+
+def exact_weight_operand(w: torch.Tensor) -> torch.Tensor:
+    """(N, K) int8: w (K, N) transposed to K-major, the only layout in which
+    the int8 tensor cores take B."""
+    return w.t().contiguous()
 
 
 @functools.lru_cache(maxsize=32)
 def _rank1_tables(design: str, device: str):
-    """(u (256, R) int8, v (256, R) int32) on ``device``: the sign-folded
-    factor tables, both indexed by the operand's byte, R contiguous."""
+    """(u (256, Rp) int8, planes (nd, 257, Rp) int8) on ``device``: the
+    sign-folded factor table u_signed and the base-128 digit planes of
+    v_signed, both indexed by the operand's byte, zero past R; the planes'
+    row 256 is zero, the index of padding."""
     fac = F.factorize(design)
-    u = torch.as_tensor(np.ascontiguousarray(fac.u_signed), device=device)
-    v = torch.as_tensor(np.ascontiguousarray(fac.v_signed.T),
-                        device=device)
-    return u, v, fac.R
+    rp = rank1_r_pad(fac.R)
+    u = np.zeros((256, rp), np.int8)
+    u[:, :fac.R] = fac.u_signed
+    planes = np.zeros((fac.n_digits, 257, rp), np.int8)
+    for d, plane in enumerate(F.v_digit_planes(fac)):
+        planes[d, :256, :fac.R] = plane.T
+    return (torch.as_tensor(u, device=device),
+            torch.as_tensor(planes, device=device))
+
+
+def rank1_weight_planes(w: torch.Tensor, design: str = "proposed"
+                        ) -> torch.Tensor:
+    """(nd * N, Kp * Rp) int8, the weight side of the rank-factored
+    correction: row d * N + n holds digit plane d of
+    v_signed[:, w[:, n] & 0xFF] in feature order k * Rp + r, so that
+    sum_d plane_d * 128^d is v; zero for r >= R and k >= K. K is padded to
+    Kp, a multiple of 4, so that a row is a multiple of 16 bytes, the
+    kernel's widest copy."""
+    k, n = w.shape
+    _, planes = _rank1_tables(design, str(w.device))
+    nd, _, rp = planes.shape
+    kp = -(-k // 4) * 4
+    wb = w.view(torch.uint8).t()
+    if kp == k:
+        idx = wb.to(torch.int64, memory_format=torch.contiguous_format)
+    else:
+        idx = torch.full((n, kp), 256, dtype=torch.int64, device=w.device)
+        idx[:, :k] = wb
+    # index_select rather than advanced indexing: the same gather at a
+    # fraction of the host time per call
+    feats = torch.index_select(planes, 1, idx.reshape(-1))  # (nd, N*Kp, Rp)
+    return feats.reshape(nd * n, kp * rp)
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _out_kind(scale, relu):
+    return (_OUT_INT32 if scale is None
+            else _OUT_F32_RELU if relu else _OUT_F32)
 
 
 def _launch(body: str, design: str, x: torch.Tensor, w: torch.Tensor,
@@ -117,24 +199,35 @@ def _launch(body: str, design: str, x: torch.Tensor, w: torch.Tensor,
     rows, k = x.numel() // x.shape[-1], x.shape[-1]
     n = w.shape[1]
     design_id = codegen.designs().index(design) if body == "deficit" else 0
-    u = v = None
-    r = 0
-    if body == "rank1":
-        u, v, r = _rank1_tables(design, str(x.device))
-    out_kind = (_OUT_INT32 if scale is None
-                else _OUT_F32_RELU if relu else _OUT_F32)
-
-    def ptr(t):
-        return None if t is None else t.data_ptr()
-
     with torch.cuda.device(x.device):
         err = _lib().approx_mm_launch(
-            _BODY[body], design_id, ptr(x), ptr(w), rows, k, n, ptr(u),
-            ptr(v), r, ptr(scale), ptr(bias), out_kind, ptr(out),
+            _BODY[body], design_id, _ptr(x), _ptr(w), rows, k, n,
+            _ptr(scale), _ptr(bias), _out_kind(scale, relu), _ptr(out),
             torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"approx_mm_launch({body}) failed: CUDA error "
                            f"{err}")
+
+
+def _launch_tc(body: str, design: str, x: torch.Tensor, w: torch.Tensor,
+               out: torch.Tensor, scale: Optional[torch.Tensor] = None,
+               bias: Optional[torch.Tensor] = None, relu: bool = False):
+    rows, k = x.numel() // x.shape[-1], x.shape[-1]
+    n = w.shape[1]
+    w_op, planes, u = exact_weight_operand(w), None, None
+    if body == "rank1":
+        u, table = _rank1_tables(design, str(w.device))
+        planes = rank1_weight_planes(w, design)
+    nd, rp, f_ld = ((0, 0, 0) if u is None else
+                    (table.shape[0], u.shape[1], planes.shape[1]))
+    with torch.cuda.device(x.device):
+        err = _lib().tc_mm_launch(
+            _TC_BODY[body], _ptr(x), _ptr(w_op), _ptr(planes), _ptr(u),
+            rows, k, n, nd, rp, f_ld, _ptr(scale), _ptr(bias),
+            _out_kind(scale, relu), _ptr(out),
+            torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"tc_mm_launch({body}) failed: CUDA error {err}")
 
 
 def _count(fn, variant: str):
@@ -362,7 +455,8 @@ def fused_matmul(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
     _check_cuda(x, w, scale, bias)
     out = torch.empty((*x.shape[:-1], w.shape[1]), dtype=torch.float32,
                       device=x.device)
-    _launch(variant, design, x, w, out, scale, bias, relu)
+    launch = _launch_tc if variant == "exact" else _launch
+    launch(variant, design, x, w, out, scale, bias, relu)
     _count(fused_matmul, variant)
     return out
 
@@ -378,7 +472,7 @@ def rank1_matmul(x: torch.Tensor, w: torch.Tensor,
     _check_cuda(x, w)
     out = torch.empty((x.shape[0], w.shape[1]), dtype=torch.int32,
                       device=x.device)
-    _launch("rank1", design, x, w, out)
+    _launch_tc("rank1", design, x, w, out)
     _count(rank1_matmul, "rank1")
     return out
 
@@ -396,7 +490,7 @@ def rank1_fused_matmul(x: torch.Tensor, w: torch.Tensor,
     _check_cuda(x, w, scale, bias)
     out = torch.empty((*x.shape[:-1], w.shape[1]), dtype=torch.float32,
                       device=x.device)
-    _launch("rank1", design, x, w, out, scale, bias, relu)
+    _launch_tc("rank1", design, x, w, out, scale, bias, relu)
     _count(rank1_fused_matmul, "rank1")
     return out
 
