@@ -19,7 +19,8 @@ Phases, each printing its seconds:
             design and design13), ragged and batched shapes across the
             tile seams of both kernels (K past one staged x slab of the
             tensor-core kernel too), and the LeNet-5, Keras CNN and FFDNet
-            layer shapes; hold every backend's int32 output to the JAX
+            layer shapes (the suites' FFDNet too); hold every backend's
+            int32 output to the JAX
             package's (src/repro_torch/testdata/reference.npz); time each
             entry (fused_matmul[exact] in turns with torch._int_mm), its
             kernel's device time under torch.profiler, and for the
@@ -37,14 +38,34 @@ Phases, each printing its seconds:
             backends, fused and unfused, and their oracles: outputs equal
             bit for bit; each forward timed FORWARD_REPS times, and one
             traced with torch.profiler for its device time;
-6. launch counts of phases 4-5: every kernel entry launched;
-7. one JSON line ``{"kernels": [...]}``;
+6. suites   the paper's four result suites through repro_torch.eval's
+            runners at their paper-scale budgets: metrics and hw equal the
+            committed experiments/eval tables; mnist (LeNet-5, 300 QAT
+            steps on 5,000 digits, 500 test digits) and denoise (FFDNet
+            depth 6, width 32, 150 QAT steps on 64x64 textures, 16 images
+            at sigma 25 and 50) train on the card and sweep bf16, all 15
+            backends and two multiplier variants: the training loss falls,
+            bf16 LeNet-5 scores at least 90 %, every *_pallas row equals
+            its oracle's and every MSR core row its *_lut row, and each
+            CUDA backend's logits and denoised images from the trained
+            weights at the suites' sizes equal its oracle's bit for bit;
+            one LeNet-5
+            train_step through the deficit kernel (STE, qat=False) gives
+            the gradients of the same step under approx_lut, bit for bit;
+            ms per training step (CUDA events at each batch), one profiled
+            step, cuDNN deterministic against not, and each sweep point's
+            seconds; the artifacts are written to build/torch_eval/;
+7. launch counts, set to 0 before each of phases 4, 5 and 6 (the suite
+   runners' calls) and read after it: LeNet-5 and FFDNet each launch every
+   entry but fused_matmul[exact], the suites every fused entry;
+8. one JSON line ``{"suites": {...}}`` and one ``{"kernels": [...]}``;
 then the ``nvidia-smi`` name and power limit, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure raises: the script exits
 non-zero and prints no result. It imports nothing of JAX.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import json
 import re
@@ -59,6 +80,8 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 FIXTURE = ROOT / "src" / "repro_torch" / "testdata" / "reference.npz"
 DETAIL = ROOT / "build" / "chip_smoke_detail.json"
+EVAL_OUT = ROOT / "build" / "torch_eval"
+COMMITTED_EVAL = ROOT / "experiments" / "eval"
 CUDA_CORE_SOURCE = "src/repro_torch/kernels/csrc/approx_matmul.cu"
 TC_SOURCE = "src/repro_torch/kernels/csrc/tc_matmul.cu"
 
@@ -100,9 +123,13 @@ TC_SEAMS = {"seam(65,25,4)": (1, 65, 25, 4), "seam(129,45,9)": (1, 129, 45, 9),
             "seam(129,25,33)": (1, 129, 25, 33),
             "seam(129,2051,9)": (1, 129, 2051, 9),
             "seam(65,1300,17)": (1, 65, 1300, 17)}
-# The variants the main path (phases 4-5) must launch: no caller of the
-# JAX package (nor of the port) selects fused_matmul's "exact" variant.
+# The variants the LeNet-5 and FFDNet paths (phases 4, 5) must each launch:
+# no caller of the JAX package (nor of the port) selects fused_matmul's
+# "exact" variant.
 PATH_VARIANTS = [r[:2] for r in ROWS if r[1] != "exact"]
+# the suites' sweeps take the fused route of each CUDA backend
+SUITE_VARIANTS = [("fused_matmul", "deficit"), ("fused_matmul", "stage1"),
+                  ("rank1_fused_matmul", "rank1")]
 
 LENET_LAYERS = {  # (B, M, K, N) of each quantized matmul at batch 50
     "lenet5.c1": (50, 784, 25, 6), "lenet5.c2": (50, 196, 150, 16),
@@ -115,6 +142,10 @@ FFDNET_LAYERS = {  # 16 images of 64x64 -> 32x32 after pixel_unshuffle
     "ffdnet.in": (16, 1024, 45, 64), "ffdnet.mid": (16, 1024, 576, 64),
     "ffdnet.out": (16, 1024, 576, 4)}
 LAYERS = {**LENET_LAYERS, **KERAS_LAYERS, **FFDNET_LAYERS}
+SUITE_LAYERS = {  # the denoise suite's FFDNet (depth 6, width 32), 16 images
+    "suite.ffdnet.in": (16, 1024, 45, 32),
+    "suite.ffdnet.mid": (16, 1024, 288, 32),
+    "suite.ffdnet.out": (16, 1024, 288, 4)}
 TIMED_LAYER = "ffdnet.mid"
 FORWARD_REPS = 10
 
@@ -190,34 +221,50 @@ def main() -> int:
     with Phase("kernels"):
         rows = kernels_phase(torch, K, detail, ops)
 
-    K.reset_launch_counts()
-    with Phase("lenet5"):
-        lenet5_phase(torch, detail)
-    with Phase("ffdnet"):
-        ffdnet_phase(torch, detail)
-    counts = {(name, var): getattr(K, name).variant_launches[var]
-              for name, var, _ in ROWS}
+    paths = {}          # each path's own launch counts
+    for name, run in (("lenet5", lenet5_phase), ("ffdnet", ffdnet_phase)):
+        K.reset_launch_counts()
+        with Phase(name):
+            run(torch, detail)
+        paths[name] = launch_counts(K)
+    with Phase("suites"):
+        suites, paths["suites"] = suites_phase(torch, detail, "cuda",
+                                               smoke=False)
 
     with Phase("launches"):
-        for (name, var), n in counts.items():
-            print(f"launches {name}[{var}]: {n}")
-        for name, var in PATH_VARIANTS:
-            check(counts[(name, var)] > 0,
-                  f"{name}[{var}] was not launched on the main path")
+        for name, var, _ in ROWS:
+            print(f"launches {name}[{var}]: " + ", ".join(
+                f"{path} {c[(name, var)]}" for path, c in paths.items()))
+        for path, counts in paths.items():
+            need = SUITE_VARIANTS if path == "suites" else PATH_VARIANTS
+            for name, var in need:
+                check(counts[(name, var)] > 0,
+                      f"{name}[{var}] was not launched on the {path} path")
+        detail["launches"] = {
+            path: {f"{name}[{var}]": n for (name, var), n in c.items()}
+            for path, c in paths.items()}
         for row in rows:
-            row["launches"] = counts[(row.pop("_entry"), row.pop("_variant"))]
+            key = (row.pop("_entry"), row.pop("_variant"))
+            row["launches_by_path"] = {p: c[key] for p, c in paths.items()}
+            row["launches"] = sum(row["launches_by_path"].values())
         detail["launches_per_forward"] = per_forward_launches(torch, K)
         for key, n in detail["launches_per_forward"].items():
             print(f"launches per forward {key}: {n}")
 
     DETAIL.parent.mkdir(parents=True, exist_ok=True)
     DETAIL.write_text(json.dumps(detail, indent=1))
+    print(json.dumps({"suites": suites}, separators=(",", ":")))
     print(json.dumps({"kernels": rows}))
     print(smi_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def launch_counts(K) -> dict:
+    return {(name, var): getattr(K, name).variant_launches[var]
+            for name, var, _ in ROWS}
 
 
 # ---------------------------------------------------------------------------
@@ -424,7 +471,7 @@ def kernels_phase(torch, K, detail, ops):
     shapes = {"ragged(1000,577,65)": (1, 1000, 577, 65),
               "ragged(3,1,1)": (1, 3, 1, 1),
               "batched(4,333,150,70)": (4, 333, 150, 70),
-              **TC_SEAMS, **LAYERS}
+              **TC_SEAMS, **LAYERS, **SUITE_LAYERS}
     errs = {r[:2]: 0.0 for r in ROWS}
     per_layer, timed = [], []
     for label, (bb, m, k, n) in shapes.items():
@@ -568,13 +615,24 @@ def _time_forward(torch, forward, label: str) -> dict:
 # Phase 4: LeNet-5 through eval_classifier
 # ---------------------------------------------------------------------------
 
+def fixture_lenet5(dev):
+    """The fixture's JAX-trained LeNet-5 weights on ``dev``."""
+    from repro_torch.convert import params_from_jax
+    tree: dict = {}
+    with np.load(FIXTURE) as data:
+        for key in data.files:
+            if key.startswith("lenet5/"):
+                _, layer, leaf = key.split("/")
+                tree.setdefault(layer, {})[leaf] = data[key]
+    return params_from_jax(tree, device=dev)
+
+
 CUDA_BACKENDS = ("approx_deficit_pallas", "approx_stage1_pallas",
                  "approx_rank1_pallas")
 
 
 def lenet5_phase(torch, detail):
     import dataclasses
-    from repro_torch.convert import params_from_jax
     from repro_torch.data import synthetic
     from repro_torch.models import cnn as CNN
     from repro_torch.quant import matmul as QM
@@ -582,14 +640,9 @@ def lenet5_phase(torch, detail):
     from repro_torch.train import cnn_train as T
 
     with np.load(FIXTURE) as data:
-        tree: dict = {}
-        for key in data.files:
-            if key.startswith("lenet5/"):
-                _, layer, leaf = key.split("/")
-                tree.setdefault(layer, {})[leaf] = data[key]
         jax_ref = {k: data[k] for k in data.files
                    if k.startswith(("logits_", "acc_"))}
-    params = params_from_jax(tree)
+    params = fixture_lenet5("cuda")
     batch = torch.from_numpy(synthetic.digits(500, seed=1)[0][:50]).cuda()
     backends = ["bf16"] + list(QM.list_backends())
     logits, acc, times = {}, {}, {}
@@ -738,6 +791,340 @@ def ffdnet_phase(torch, detail):
     print("  CUDA backends: FFDNet outputs bitwise equal to their oracle's, "
           "fused and unfused")
     detail["ffdnet"] = rows
+
+
+# ---------------------------------------------------------------------------
+# Phase 6: the paper's result suites, with QAT training on the card
+# ---------------------------------------------------------------------------
+
+SUITE_RUNS = ("metrics", "hw", "mnist", "denoise")
+TASK_KEYS = {"mnist": ("acc",), "denoise": ("psnr", "ssim", "noisy_psnr")}
+MSR_CORES = ("msr4", "drum6", "posneg")
+TIMED_STEPS = 40        # train_step calls per timing turn
+WARM_STEPS = 5          # first steps of a run left out of its median
+
+
+def _sync(torch, dev: str):
+    if dev == "cuda":
+        torch.cuda.synchronize()
+
+
+class SuiteRecorder:
+    """For the length of a ``with``, wraps the functions of
+    repro_torch.train.cnn_train that the suite runners call: each ``fit``
+    records its losses and the milliseconds between the batches its loop
+    draws (on the card the gaps between CUDA events recorded at each draw,
+    so device time with the host's gaps; on the CPU the host clock), and
+    each eval call its seconds under its sweep label and its arguments."""
+
+    NAMES = ("fit", "eval_classifier", "eval_denoiser")
+
+    def __init__(self, torch, T, dev: str):
+        self.torch, self.T, self.dev = torch, T, dev
+        self.fits, self.evals, self.calls = [], {}, []
+
+    def __enter__(self):
+        self.saved = {n: getattr(self.T, n) for n in self.NAMES}
+        self.T.fit = self._fit
+        self.T.eval_classifier = self._timed("eval_classifier")
+        self.T.eval_denoiser = self._timed("eval_denoiser")
+        return self
+
+    def __exit__(self, *exc):
+        for n, fn in self.saved.items():
+            setattr(self.T, n, fn)
+        return False
+
+    def _stamp(self):
+        if self.dev == "cuda":
+            ev = self.torch.cuda.Event(enable_timing=True)
+            ev.record()
+            return ev
+        return time.perf_counter()
+
+    def _gaps_ms(self, stamps) -> list:
+        if self.dev == "cuda":
+            self.torch.cuda.synchronize()
+            return [a.elapsed_time(b) for a, b in zip(stamps, stamps[1:])]
+        return [(b - a) * 1e3 for a, b in zip(stamps, stamps[1:])]
+
+    def _fit(self, descs, loss_fn, batches, **kw):
+        stamps = []
+
+        def drawn():
+            for batch in batches:
+                stamps.append(self._stamp())
+                yield batch
+
+        params, losses = self.saved["fit"](descs, loss_fn, drawn(), **kw)
+        stamps.append(self._stamp())
+        self.fits.append({"losses": losses,
+                          "step_ms": self._gaps_ms(stamps)})
+        return params, losses
+
+    def _timed(self, name):
+        def run(params, model, quant, **kw):
+            _sync(self.torch, self.dev)
+            t0 = time.perf_counter()
+            out = self.saved[name](params, model, quant, **kw)
+            _sync(self.torch, self.dev)
+            label = (quant.backend if quant.multiplier == "proposed" else
+                     f"{quant.backend}[{quant.multiplier}]")
+            if "sigma" in kw:
+                label += f" sigma={kw['sigma']:g}"
+            self.evals[label] = time.perf_counter() - t0
+            self.calls.append((params, model, quant, kw))
+            return out
+        return run
+
+
+def check_sweep_rows(name: str, rows: list, QM):
+    """Every row finite; every *_pallas row equal to its oracle's row and
+    every MSR core row to its *_lut row, in the task columns; bf16
+    LeNet-5 at 90 % or more."""
+    keys = TASK_KEYS[name]
+    sigmas = sorted({r.get("sigma") for r in rows}, key=str)
+    check(len(rows) == 18 * len(sigmas), f"{name}: {len(rows)} rows")
+    for r in rows:
+        check(all(np.isfinite(r[k]) for k in keys), f"{name}: bad row {r}")
+    by = {(r["backend"], r.get("sigma")): r for r in rows}
+    pairs = [(be, QM.get_backend(be).oracle) for be in QM.list_backends()
+             if be.endswith("_pallas") or be in MSR_CORES]
+    check(len(pairs) == 6, f"{name}: {len(pairs)} backends with an oracle")
+    for be, oracle in pairs:
+        for sig in sigmas:
+            got = [by[(be, sig)][k] for k in keys]
+            want = [by[(oracle, sig)][k] for k in keys]
+            check(got == want, f"{name}: {be} row {got} != {oracle} "
+                               f"row {want} (sigma {sig})")
+    if name == "mnist":
+        check(by[("bf16", None)]["acc"] >= 90.0,
+              f"bf16 LeNet-5 accuracy {by[('bf16', None)]['acc']} < 90 %")
+
+
+def check_suite_outputs(torch, name: str, rec: SuiteRecorder, QM) -> int:
+    """Replays each of the suite's eval calls under a CUDA backend, with
+    the trained weights and the suite's own data and sizes, and under the
+    backend's oracle: the logits (mnist) or the unclipped FFDNet output
+    (denoise) must be equal bit for bit. Returns the calls compared."""
+    import dataclasses
+    from repro_torch.models import cnn as CNN
+    T = rec.T
+
+    def raw(params, model, quant, kw):
+        if name == "mnist":
+            return T.classifier_logits(params, model, quant, **kw)[0]
+        _, noisy, _ = T.denoise(params, model, quant, **kw)
+        with torch.inference_mode():
+            return CNN.ffdnet_apply(params, noisy, kw["sigma"] / 255.0,
+                                    model, quant)
+
+    n = 0
+    for params, model, quant, kw in rec.calls:
+        if quant.backend not in CUDA_BACKENDS:
+            continue
+        oracle = dataclasses.replace(
+            quant, backend=QM.get_backend(quant.backend).oracle)
+        got, want = raw(params, model, quant, kw), raw(params, model,
+                                                      oracle, kw)
+        check(got.shape == want.shape and torch.equal(got, want),
+              f"{name}: {quant.backend} output differs from "
+              f"{oracle.backend}'s at {kw}")
+        n += 1
+    want_n = len(CUDA_BACKENDS) * (2 if name == "denoise" else 1)
+    check(n == want_n, f"{name}: {n} CUDA backend evals, expected {want_n}")
+    return n
+
+
+@contextlib.contextmanager
+def cudnn_free(T, torch):
+    """Inside, ``T.train_step`` runs under its training numerics with
+    cuDNN free to pick its algorithms (deterministic off)."""
+    numerics = T.training_numerics
+
+    @contextlib.contextmanager
+    def free():
+        with numerics():
+            torch.backends.cudnn.deterministic = False
+            yield
+
+    T.training_numerics = free
+    try:
+        yield
+    finally:
+        T.training_numerics = numerics
+
+
+def _step_ms(torch, dev, step, reps: int) -> list:
+    """Host milliseconds of ``reps`` calls of ``step``, each ended by a
+    synchronize on the card."""
+    out = []
+    for _ in range(reps):
+        _sync(torch, dev)
+        t0 = time.perf_counter()
+        step()
+        _sync(torch, dev)
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def training_checks(torch, detail, dev: str, smoke: bool) -> dict:
+    """One LeNet-5 train_step through the deficit kernel (STE, qat=False)
+    against the same step under approx_lut, bitwise; then the QAT
+    train_step of each suite's model at its batch: ms per step with
+    cuDNN deterministic and not (in turns: on, off, off, on), and one
+    profiled step's device busy time."""
+    import warnings
+    from repro_torch.data import synthetic
+    from repro_torch.models import cnn as CNN
+    from repro_torch.nn.module import init_params
+    from repro_torch.optim import adamw as A
+    from repro_torch.quant.quantize import BF16, QuantConfig
+    from repro_torch.train import cnn_train as T
+
+    imgs, labels = synthetic.digits(64, seed=0)
+    lenet_batch = (torch.from_numpy(imgs).to(dev),
+                   torch.from_numpy(labels).to(dev))
+    params = fixture_lenet5(dev)
+    ocfg = A.AdamWConfig(lr=2e-3, weight_decay=0.0)
+    got = {}
+    # cuDNN runs nothing on this path (im2col + the quantized matmul);
+    # deterministic algorithms fix the order of im2col's backward sums
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            for be in ("approx_deficit_pallas", "approx_lut"):
+                loss_fn = T.classifier_loss(CNN.lenet5_apply,
+                                            QuantConfig(backend=be))
+                with T.training_numerics():
+                    loss, grads = T.value_and_grad(loss_fn, params,
+                                                   *lenet_batch)
+                new_p, _, _ = T.train_step(params, A.init(params, ocfg),
+                                           lenet_batch, loss_fn, ocfg)
+                got[be] = [loss] + [t for _, t in A.flatten(grads)
+                                    + A.flatten(new_p)]
+        finally:
+            torch.use_deterministic_algorithms(False)
+    check(all(torch.equal(a, b) for a, b in
+              zip(got["approx_deficit_pallas"], got["approx_lut"])),
+          "train_step through the deficit kernel differs from approx_lut")
+    print("  STE train_step through the deficit kernel: loss, gradients "
+          "and updated weights bitwise equal to approx_lut's")
+
+    cfg = (CNN.FFDNetConfig(depth=3, width=8) if smoke
+           else CNN.FFDNetConfig(depth=6, width=32))
+    size = 32 if smoke else 64
+    clean = synthetic.textures(16, size=size, seed=0)
+    ffd_batch = tuple(torch.from_numpy(b).to(dev) for b in next(
+        T.denoiser_batches(clean, batch=8, sigmas=(15., 25., 50.), seed=0)))
+    models = {
+        "lenet5 (batch 64)": (CNN.lenet5_descs(), T.classifier_loss(
+            CNN.lenet5_apply, BF16, qat=True), lenet_batch, 2e-3),
+        f"ffdnet d{cfg.depth} w{cfg.width} (batch 8, {size}x{size})": (
+            CNN.ffdnet_descs(cfg), T.denoiser_loss(cfg, BF16, qat=True),
+            ffd_batch, 1e-3)}
+    gen = torch.Generator().manual_seed(0)
+    out = {"ste_kernel_step_equals_oracle": True}
+    for label, (descs, loss_fn, batch, lr) in models.items():
+        ocfg = A.AdamWConfig(lr=lr, weight_decay=0.0)
+        params = init_params(descs, gen, dev)
+        state = {"p": params, "o": A.init(params, ocfg)}
+
+        def step(det=True):
+            with contextlib.nullcontext() if det else cudnn_free(T, torch):
+                state["p"], state["o"], _ = T.train_step(
+                    state["p"], state["o"], batch, loss_fn, ocfg)
+
+        ms = {True: [], False: []}
+        for det in (True, False, False, True):
+            ms[det] += _step_ms(torch, dev, lambda: step(det),
+                                TIMED_STEPS)[WARM_STEPS:]
+        row = {"ms_deterministic": statistics.median(ms[True]),
+               "ms_nondeterministic": statistics.median(ms[False])}
+        detail[f"train_step_ms {label}"] = {"deterministic": ms[True],
+                                            "nondeterministic": ms[False]}
+        if dev == "cuda":
+            prof = _profile_ms(torch, step)
+            row.update(prof)
+            row["idle_share"] = 1 - prof["device_busy_ms"] / \
+                row["ms_deterministic"]
+        out[label] = row
+        print(f"  train_step {label}: {row['ms_deterministic']:.3f} ms "
+              f"(cuDNN deterministic), {row['ms_nondeterministic']:.3f} ms "
+              f"(not); profiled: " + (
+                  f"card busy {row['device_busy_ms']:.3f} ms of "
+                  f"{row['wall_ms']:.3f} ms, idle share "
+                  f"{row['idle_share']:.2f}" if dev == "cuda" else "n/a"))
+    return out
+
+
+def suites_phase(torch, detail, dev: str, smoke: bool) -> dict:
+    """Run the four suites through the runners on ``dev``, check them, and
+    write their artifacts to build/torch_eval/. Returns the suites line and
+    the kernel launches of the runners' calls (counts set to 0 before each
+    and read after it, so the checks' launches are left out)."""
+    from repro_torch.eval import artifacts
+    from repro_torch.eval import runners as R
+    from repro_torch.kernels import approx_matmul as K
+    from repro_torch.quant import matmul as QM
+    from repro_torch.train import cnn_train as T
+
+    EVAL_OUT.mkdir(parents=True, exist_ok=True)
+    out = {}
+    launches = {key: 0 for key in launch_counts(K)}
+    for name in SUITE_RUNS:
+        rec = SuiteRecorder(torch, T, dev)
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        with rec:
+            art = R.SUITES[name].run(smoke=smoke, seed=0, device=dev)
+        wall = time.perf_counter() - t0
+        for key, n in launch_counts(K).items():
+            launches[key] += n
+        artifacts.save(EVAL_OUT / f"{name}.json", art)
+        (EVAL_OUT / f"{name}.md").write_text(R.render_artifact(art))
+        entry = {"wall_s": wall, "config": art["config"],
+                 "tables": art["tables"]}
+        if name in TASK_KEYS:
+            (table,) = art["tables"].values()
+            check_sweep_rows(name, table, QM)
+            check(len(rec.fits) == 1, f"{name}: {len(rec.fits)} fits")
+            losses = rec.fits[0]["losses"]
+            first = statistics.mean(losses[:10])
+            last = statistics.mean(losses[-10:])
+            check(last < 0.5 * first, f"{name}: training loss {first:.4g} "
+                                      f"-> {last:.4g} did not halve")
+            n = check_suite_outputs(torch, name, rec, QM)
+            print(f"  {name}: {n} CUDA backend evals replayed, outputs "
+                  "bitwise equal to their oracle's")
+            step_ms = rec.fits[0]["step_ms"]
+            slowest = sorted(rec.evals.items(), key=lambda kv: -kv[1])[:3]
+            entry.update({
+                "steps": len(losses), "loss_first10": first,
+                "loss_last10": last,
+                "ms_per_step": statistics.median(step_ms[WARM_STEPS:]),
+                "eval_s": sum(rec.evals.values()),
+                "slowest_points_s": dict(slowest)})
+            detail[f"suite_{name}_points_s"] = rec.evals
+            detail[f"suite_{name}_step_ms"] = step_ms
+            detail[f"suite_{name}_losses"] = losses
+            print(f"  {name}: {len(losses)} QAT steps, loss {first:.4g} -> "
+                  f"{last:.4g}, {entry['ms_per_step']:.3f} ms per step; "
+                  f"sweep {entry['eval_s']:.1f} s, slowest "
+                  + ", ".join(f"{k} {v:.2f} s" for k, v in slowest))
+        else:
+            committed = json.loads(
+                (COMMITTED_EVAL / f"{name}.json").read_text())
+            check(art["tables"] == committed["tables"],
+                  f"{name}: tables differ from experiments/eval/{name}.json")
+            print(f"  {name}: tables equal experiments/eval/{name}.json")
+        print(f"  {name}: {wall:.1f} s -> {EVAL_OUT / name}.json")
+        out[name] = entry
+    out["training"] = training_checks(torch, detail, dev, smoke)
+    print("  every *_pallas row equals its oracle's and every MSR core row "
+          "its *_lut row, in both task suites")
+    return out, launches
 
 
 if __name__ == "__main__":

@@ -38,14 +38,14 @@ def keras_cnn_descs(n_classes: int = 10):
     }
 
 
-def keras_cnn_apply(params, x, quant: QuantConfig = BF16):
-    x = CV.conv2d(params["c1"], x, quant, activation="relu")
+def keras_cnn_apply(params, x, quant: QuantConfig = BF16, qat=False):
+    x = CV.conv2d(params["c1"], x, quant, qat=qat, activation="relu")
     x = CV.maxpool2(x)
-    x = CV.conv2d(params["c2"], x, quant, activation="relu")
+    x = CV.conv2d(params["c2"], x, quant, qat=qat, activation="relu")
     x = CV.maxpool2(x)
     x = x.reshape(x.shape[0], -1)
-    x = L.dense(params["fc1"], x, quant, activation="relu")
-    return L.dense(params["fc2"], x, quant)
+    x = L.dense(params["fc1"], x, quant, qat=qat, activation="relu")
+    return L.dense(params["fc2"], x, quant, qat=qat)
 
 
 # ---------------------------------------------------------------------------
@@ -65,15 +65,15 @@ def lenet5_descs(n_classes: int = 10):
     }
 
 
-def lenet5_apply(params, x, quant: QuantConfig = BF16):
-    x = CV.conv2d(params["c1"], x, quant, activation="relu")
+def lenet5_apply(params, x, quant: QuantConfig = BF16, qat=False):
+    x = CV.conv2d(params["c1"], x, quant, qat=qat, activation="relu")
     x = CV.avgpool2(x)
-    x = CV.conv2d(params["c2"], x, quant, activation="relu")
+    x = CV.conv2d(params["c2"], x, quant, qat=qat, activation="relu")
     x = CV.avgpool2(x)
     x = x.reshape(x.shape[0], -1)
-    x = L.dense(params["fc1"], x, quant, activation="relu")
-    x = L.dense(params["fc2"], x, quant, activation="relu")
-    return L.dense(params["fc3"], x, quant)
+    x = L.dense(params["fc1"], x, quant, qat=qat, activation="relu")
+    x = L.dense(params["fc2"], x, quant, qat=qat, activation="relu")
+    return L.dense(params["fc3"], x, quant, qat=qat)
 
 
 # ---------------------------------------------------------------------------
@@ -113,19 +113,20 @@ def pixel_shuffle(x):
 
 
 def ffdnet_apply(params, noisy, sigma, cfg: FFDNetConfig = FFDNetConfig(),
-                 quant: QuantConfig = BF16):
+                 quant: QuantConfig = BF16, qat=False):
     """noisy: (B,H,W,C) in [0,1]; sigma: scalar or (B,) noise level /255."""
     x = pixel_unshuffle(noisy)
     sig = torch.as_tensor(sigma, dtype=x.dtype, device=x.device)
     smap = sig.reshape(-1, 1, 1, 1).expand(x.shape[0], x.shape[1],
                                            x.shape[2], 1)
     x = torch.cat([x, smap], dim=-1)
-    x = CV.conv2d(params["in"], x, quant, activation="relu")
+    x = CV.conv2d(params["in"], x, quant, qat=qat, activation="relu")
     i = 0
     while f"mid{i}" in params:
-        x = CV.conv2d(params[f"mid{i}"], x, quant, activation="relu")
+        x = CV.conv2d(params[f"mid{i}"], x, quant, qat=qat,
+                      activation="relu")
         i += 1
-    x = CV.conv2d(params["out"], x, quant)
+    x = CV.conv2d(params["out"], x, quant, qat=qat)
     return noisy - pixel_shuffle(x)                # residual: predict noise
 
 
@@ -143,7 +144,9 @@ def _to_module(tree) -> nn.Module:
 
 class _Model(nn.Module):
     """Holds a parameter tree (``self.params``, keyed as in the JAX
-    package), drawn by ``init_params`` unless ``params`` are given."""
+    package), drawn by ``init_params`` unless ``params`` are given.
+    ``forward`` runs under inference mode; training goes through
+    ``train.cnn_train`` on the functional ``*_apply``."""
 
     def __init__(self, descs, generator, device, params):
         super().__init__()
@@ -164,8 +167,8 @@ class LeNet5(_Model):
         super().__init__(lenet5_descs(), generator, device, params)
 
     @torch.inference_mode()
-    def forward(self, x, quant: QuantConfig = BF16):
-        return lenet5_apply(self.params, x, quant)
+    def forward(self, x, quant: QuantConfig = BF16, qat=False):
+        return lenet5_apply(self.params, x, quant, qat)
 
 
 class KerasCNN(_Model):
@@ -174,8 +177,8 @@ class KerasCNN(_Model):
         super().__init__(keras_cnn_descs(), generator, device, params)
 
     @torch.inference_mode()
-    def forward(self, x, quant: QuantConfig = BF16):
-        return keras_cnn_apply(self.params, x, quant)
+    def forward(self, x, quant: QuantConfig = BF16, qat=False):
+        return keras_cnn_apply(self.params, x, quant, qat)
 
 
 class FFDNet(_Model):
@@ -191,5 +194,5 @@ class FFDNet(_Model):
         return cls(cfg, params=params_from_jax(np_tree, device=device))
 
     @torch.inference_mode()
-    def forward(self, noisy, sigma, quant: QuantConfig = BF16):
-        return ffdnet_apply(self.params, noisy, sigma, self.cfg, quant)
+    def forward(self, noisy, sigma, quant: QuantConfig = BF16, qat=False):
+        return ffdnet_apply(self.params, noisy, sigma, self.cfg, quant, qat)

@@ -15,7 +15,7 @@ import torch.nn.functional as Fn
 from repro_torch.nn.layers import relu
 from repro_torch.nn.module import ParamDesc
 from repro_torch.quant.matmul import quantized_matmul
-from repro_torch.quant.quantize import QuantConfig
+from repro_torch.quant.quantize import QuantConfig, fake_quant_per_channel
 
 
 def conv2d_desc(c_in: int, c_out: int, k: int = 3, dtype=torch.float32,
@@ -85,8 +85,12 @@ def _float_conv(x: torch.Tensor, w: torch.Tensor, stride: int,
 
 
 def conv2d(params, x: torch.Tensor, quant: QuantConfig, stride: int = 1,
-           padding: str = "SAME", activation: str = None) -> torch.Tensor:
+           padding: str = "SAME", qat: bool = False,
+           activation: str = None) -> torch.Tensor:
     """x: (B,H,W,Cin) -> (B,Ho,Wo,Cout) via the selected backend.
+
+    qat=True fake-quantizes the weight per output channel (STE) and runs
+    the float convolution, whatever the backend.
 
     activation (None | 'relu') rides the quantized_matmul epilogue: for
     fused backends the dequant + bias + ReLU run inside the CUDA kernel on
@@ -95,13 +99,14 @@ def conv2d(params, x: torch.Tensor, quant: QuantConfig, stride: int = 1,
     w = params["w"]
     k, _, c_in, c_out = w.shape
     b = x.shape[0]
-    if quant.is_quantized:
+    if quant.is_quantized and not qat:
         cols, (ho, wo) = im2col(x, k, stride, padding)
         y = quantized_matmul(cols.reshape(b, ho * wo, k * k * c_in),
                              w.reshape(k * k * c_in, c_out), quant,
                              bias=params.get("b"), activation=activation)
         return y.reshape(b, ho, wo, c_out)
-    y = _float_conv(x, w, stride, padding)
+    wq = fake_quant_per_channel(w, axis=-1) if qat else w
+    y = _float_conv(x, wq, stride, padding)
     if "b" in params:
         y = y + params["b"]
     if activation == "relu":

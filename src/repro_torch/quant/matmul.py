@@ -21,6 +21,16 @@ JAX package's order so that every artifact row lines up:
                         approx_stage1); fused epilogue likewise
   approx_rank1_pallas   CUDA rank-factored kernel (bit-identical to
                         approx_lut); fused epilogue likewise
+  msr4_lut / msr4       MSR-4 weight compression (core/truncation.py):
+                        weights decode to 5-bit mantissa << 2-bit shift,
+                        activations stay exact. `_lut` is the gate-level
+                        gather reference; `msr4` is decode + 1 exact dot.
+  drum6_lut / drum6     DRUM-style dynamic truncation to 6 significant
+                        bits per operand with forced-one debias; core is
+                        one dot over truncated operands.
+  posneg_lut / posneg   Positive/Negative asymmetric floor truncation:
+                        k=4 for positive product classes, k=6 for
+                        negative; core is 4 masked dots.
 
 The ``*_pallas`` names are the JAX package's; here they bind to the CUDA
 kernels of repro_torch.kernels (their plain versions on CPU tensors).
@@ -29,7 +39,10 @@ Every dot outside the kernels runs in float64 (`int8_matmul`), or in
 float32 where the operands and every partial sum are small integers, so
 the integer results hold whatever the TF32 flags say.
 
-This module is forward-only (inference).
+Backward is always the straight-through estimator (exact float grads),
+which is how the paper trains its Keras models (forward substitution
+only): `quantized_matmul` is a `torch.autograd.Function` whose forward
+runs the selected backend and whose backward is float matmuls.
 """
 from __future__ import annotations
 
@@ -40,12 +53,14 @@ from typing import Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core import luts
+from repro_torch.core import factor as factorlib
+from repro_torch.core import luts, truncation
 from repro_torch.core.factor import STAGE1_SITES
 from repro_torch.core.multiplier import MultiplierConfig
 from repro_torch.kernels import approx_matmul as KA
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.ref import int8_matmul
+from repro_torch.quant import truncated as _truncated
 from repro_torch.quant.quantize import QuantConfig, abs_max_scale, quantize
 
 
@@ -154,6 +169,15 @@ def approx_matmul_stage1_fused(x_q, w_q, cfg: QuantConfig) -> torch.Tensor:
     return out - f32mm(uB, vB)
 
 
+def rank1_info(design: str) -> Dict:
+    """Correction-complexity summary for one design (profiles):
+    R (factor count), exact rank, digit planes, f32-exact K bound."""
+    fac = factorlib.factorize(design)
+    return {"R": fac.R, "rank": fac.rank, "digits": fac.n_digits,
+            "k_exact_f32": fac.k_exact_f32,
+            "stage1_terms": len(fac.stage1)}
+
+
 def approx_matmul_rank1(x_q, w_q, cfg: QuantConfig) -> torch.Tensor:
     """Bit-exact approximate matmul as exact dot + rank-factored correction
     GEMM (``core.factor``), in float64 where every partial sum is an exact
@@ -188,6 +212,8 @@ class Backend:
 
     fn:     (x_q (M,K) int8, w_q (K,N) int8, cfg) -> (M,N) int32 — the
             pre-dequant contract shared by every backend.
+    grad:   backward rule; only 'ste' (straight-through, exact float grads)
+            is defined.
     fused:  optional (x_q (B,M,K)|(M,K), w_q, cfg, scale (1,N) f32,
             bias (1,N) f32, relu: bool) -> f32 — integer matmul with the
             dequant/bias/ReLU epilogue fused (the CUDA kernels). When set,
@@ -199,6 +225,7 @@ class Backend:
     """
     name: str
     fn: Callable[[torch.Tensor, torch.Tensor, QuantConfig], torch.Tensor]
+    grad: str = "ste"
     fused: Optional[Callable] = None
     oracle: Optional[str] = None
     note: str = ""
@@ -207,19 +234,23 @@ class Backend:
 _REGISTRY: Dict[str, Backend] = {}
 
 
-def register_backend(name: str, fn: Callable, *,
+def register_backend(name: str, fn: Callable, *, grad: str = "ste",
                      fused: Optional[Callable] = None,
                      oracle: Optional[str] = None, note: str = "") -> Backend:
     """Register an integer-matmul backend under `name`.
 
-    `name` must be new; `oracle` must name an already-registered backend."""
+    `name` must be new; `oracle` must name an already-registered backend;
+    `grad` must be 'ste', the only backward rule defined."""
+    if grad != "ste":
+        raise ValueError(f"unknown grad rule {grad!r}; only 'ste' is defined")
     if name in _REGISTRY:
         raise ValueError(f"backend {name!r} already registered")
     if oracle is not None and oracle not in _REGISTRY:
         raise ValueError(f"backend {name!r} declares unknown oracle "
                          f"{oracle!r}; register the oracle first "
                          f"(registered: {list_backends()})")
-    be = Backend(name=name, fn=fn, fused=fused, oracle=oracle, note=note)
+    be = Backend(name=name, fn=fn, grad=grad, fused=fused, oracle=oracle,
+                 note=note)
     _REGISTRY[name] = be
     return be
 
@@ -235,6 +266,11 @@ def get_backend(name: str) -> Backend:
 def list_backends() -> Tuple[str, ...]:
     """Registered backend names, in registration order."""
     return tuple(_REGISTRY)
+
+
+def backend_notes() -> Dict[str, str]:
+    """name -> one-line description, for reports."""
+    return {name: be.note for name, be in _REGISTRY.items()}
 
 
 register_backend("int8_exact", lambda x, w, cfg: int8_matmul(x, w),
@@ -267,13 +303,56 @@ register_backend("approx_rank1_pallas", kops.rank1_matmul,
                       "tables) + fused epilogue")
 
 
+# ---------------------------------------------------------------------------
+# MSR/truncation family (core/truncation.py gate references +
+# quant/truncated.py vectorized cores)
+# ---------------------------------------------------------------------------
+
+@lru_cache(maxsize=16)
+def _trunc_err_device(kind: str, device: str) -> torch.Tensor:
+    """The family member's flattened signed error table, staged once per
+    device (same gather layout as `_err_lut_device`)."""
+    return torch.as_tensor(truncation.error_table(kind), device=device)
+
+
+def _trunc_lut_matmul(kind: str):
+    """Gate-level gather reference for a truncation-family member: exact
+    dot plus the exhaustive signed error table — the family's oracle,
+    bit-identical to `core.truncation.product_table(kind)`."""
+    def fn(x_q, w_q, cfg: QuantConfig) -> torch.Tensor:
+        err = _trunc_err_device(kind, str(x_q.device))
+        return int8_matmul(x_q, w_q) + _approx_error_lut(x_q, w_q, err)
+    fn.__name__ = f"{kind}_lut_matmul"
+    return fn
+
+
+register_backend("msr4_lut", _trunc_lut_matmul("msr4"),
+                 note="MSR-4 weight-compression gate reference "
+                      "(signed-LUT gather)")
+register_backend("msr4", _truncated.msr4_matmul, oracle="msr4_lut",
+                 note="MSR-4 5-bit mantissa+shift weight decode + one "
+                      "exact dot (weight-only approximation)")
+register_backend("drum6_lut", _trunc_lut_matmul("drum6"),
+                 note="DRUM-6 dynamic-truncation gate reference "
+                      "(signed-LUT gather)")
+register_backend("drum6", _truncated.drum6_matmul, oracle="drum6_lut",
+                 note="DRUM-6: one dot over operands truncated to 6 "
+                      "significant bits with forced-one debias")
+register_backend("posneg_lut", _trunc_lut_matmul("posneg"),
+                 note="Positive/Negative asymmetric-truncation gate "
+                      "reference (signed-LUT gather)")
+register_backend("posneg", _truncated.posneg_matmul, oracle="posneg_lut",
+                 note="sign-classed floor truncation (k=4 positive / "
+                      "k=6 negative product classes) as 4 masked dots")
+
+
 def integer_matmul(x_q, w_q, cfg: QuantConfig) -> torch.Tensor:
     """Pre-dequant int32 matmul via the backend selected by cfg.backend."""
     return get_backend(cfg.backend).fn(x_q, w_q, cfg)
 
 
 # ---------------------------------------------------------------------------
-# Float-in/float-out quantized matmul (forward)
+# Float-in/float-out quantized matmul with STE backward
 # ---------------------------------------------------------------------------
 
 def _float_epilogue(y, bias, activation):
@@ -295,10 +374,47 @@ def quantized_matmul(x: torch.Tensor, w: torch.Tensor, cfg: QuantConfig,
     others use the unfused composition. The float order is the JAX
     package's: per-tensor fused ``acc * (sx*sw) + bias`` in the kernel;
     unfused ``acc * (sx*sw)``, then bias, then ReLU; per-token
-    ``(acc * sw) * sx``, then bias and ReLU.
+    ``(acc * sw) * sx``, then bias and ReLU. Backward is the
+    straight-through estimator either way.
     """
     if activation not in (None, "relu"):
         raise ValueError(f"unsupported activation {activation!r}")
+    return _QuantizedMatmul.apply(x, w, bias, cfg, activation)
+
+
+class _QuantizedMatmul(torch.autograd.Function):
+    """The forward runs the backend (the CUDA kernels on the card); the
+    backward is the JAX package's ``_qmm_grads``: the ReLU mask from the
+    saved output, then float32 ``dx = g @ w.T``, ``dw = x.T @ g`` (cast
+    to w's dtype) and ``db = sum(g)``."""
+
+    @staticmethod
+    def forward(ctx, x, w, bias, cfg, activation):
+        y = _qmm_forward(x, w, bias, cfg, activation)
+        ctx.activation = activation
+        ctx.bias_like = (None if bias is None
+                         else (bias.shape, bias.dtype))
+        ctx.save_for_backward(x, w, y if activation == "relu" else None)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w, y = ctx.saved_tensors
+        if ctx.activation == "relu":
+            g = g * (y > 0).to(g.dtype)
+        g2 = g.reshape(-1, w.shape[1]).to(torch.float32)
+        x2 = x.reshape(-1, x.shape[-1]).to(torch.float32)
+        dx = (g2 @ w.to(torch.float32).t()).reshape(x.shape).to(x.dtype)
+        dw = (x2.t() @ g2).to(w.dtype)
+        db = None
+        if ctx.bias_like is not None:
+            shape, dtype = ctx.bias_like
+            db = g2.sum(dim=0).reshape(shape).to(dtype)
+        return dx, dw, db, None, None
+
+
+def _qmm_forward(x, w, bias, cfg: QuantConfig, activation):
+    """Shared quantize -> backend -> dequant/epilogue composition."""
     backend = get_backend(cfg.backend)
     lead = x.shape[:-1]
     k = x.shape[-1]

@@ -1,10 +1,11 @@
-"""Symmetric int8 quantization (inference).
+"""Symmetric int8 quantization, with straight-through-estimator training.
 
 Range is clamped to [-127, 127] (not -128) so magnitudes fit the unsigned
 8x8 core of the approximate multiplier via sign-magnitude. The codes are
 bitwise those of the JAX package: the scale is max(amax, 1e-8) / 127 in
 float32, ``quantize`` divides (it does not multiply by a reciprocal), and
-``torch.round`` rounds half to even as ``jnp.round`` does.
+``torch.round`` rounds half to even as ``jnp.round`` does. ``fake_quant``
+is the JAX package's ``custom_vjp`` as a ``torch.autograd.Function``.
 """
 from __future__ import annotations
 
@@ -36,6 +37,16 @@ class QuantConfig:
                               approx_lut; fused dequant/bias/ReLU epilogue
       'approx_stage1_pallas'  CUDA stage-1 kernel, fused epilogue
       'approx_rank1_pallas'   CUDA rank-factored kernel, fused epilogue
+      'msr4[_lut]'            MSR-4 weight compression: weights decode to a
+                              5-bit mantissa << 2-bit shift, activations
+                              exact (core/truncation.py; '_lut' = the gate
+                              reference, 'msr4' = decode + one exact dot)
+      'drum6[_lut]'           DRUM-style dynamic truncation of both
+                              operands to 6 significant bits with
+                              forced-one (unbiased) rounding
+      'posneg[_lut]'          Positive/Negative asymmetric truncation:
+                              positive product classes floor to 4
+                              significant bits, negative to 6
     (the ``_pallas`` names are kept so every row lines up with the JAX
     package's registry).
 
@@ -72,6 +83,9 @@ APPROX_RANK1 = QuantConfig(backend="approx_rank1")
 APPROX_DEFICIT_PALLAS = QuantConfig(backend="approx_deficit_pallas")
 APPROX_STAGE1_PALLAS = QuantConfig(backend="approx_stage1_pallas")
 APPROX_RANK1_PALLAS = QuantConfig(backend="approx_rank1_pallas")
+MSR4 = QuantConfig(backend="msr4")
+DRUM6 = QuantConfig(backend="drum6")
+POSNEG = QuantConfig(backend="posneg")
 
 
 def abs_max_scale(x: torch.Tensor, axis=None,
@@ -96,3 +110,34 @@ def quantize_dynamic(x: torch.Tensor, axis=None):
     """(int8 values, scale). Per-tensor if axis is None else per-axis."""
     scale = abs_max_scale(x, axis=axis, keepdims=True)
     return quantize(x, scale), scale
+
+
+class _FakeQuant(torch.autograd.Function):
+    """Quantize-dequantize; the backward is the straight-through estimator
+    with range masking: the gradient passes where |x| <= scale * 127, and
+    ``scale`` gets a zero gradient."""
+
+    @staticmethod
+    def forward(ctx, x, scale):
+        ctx.save_for_backward(x, scale)
+        q = torch.clamp(torch.round(x / scale), -QMAX, QMAX)
+        return q * scale
+
+    @staticmethod
+    def backward(ctx, g):
+        x, scale = ctx.saved_tensors
+        mask = (x.abs() <= scale * QMAX).to(g.dtype)
+        return g * mask, torch.zeros_like(scale)
+
+
+def fake_quant(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """Quantize-dequantize with straight-through gradients (QAT)."""
+    return _FakeQuant.apply(x, scale)
+
+
+def fake_quant_per_channel(w: torch.Tensor, axis: int = -1) -> torch.Tensor:
+    """QAT fake-quant with one scale per index of ``axis`` (the output
+    channel), reduced over every other axis."""
+    red = tuple(i for i in range(w.ndim) if i != (axis % w.ndim))
+    scale = abs_max_scale(w, axis=red, keepdims=True)
+    return fake_quant(w, scale)

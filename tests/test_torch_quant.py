@@ -14,7 +14,7 @@ import importlib
 
 from repro.quant import matmul as RQM
 
-from repro_torch.core import luts
+from repro_torch.core import luts, truncation
 from repro_torch.core.multiplier import proposed_multiplier
 from repro_torch.quant import matmul as QM
 from repro_torch.quant import quantize as Q
@@ -42,13 +42,22 @@ def _close(got: torch.Tensor, want, rtol=FLOAT_RTOL):
 
 
 def test_registry_order_and_rules():
-    """The slice's nine backends, in the JAX package's registration order."""
-    assert BACKENDS == RQM.list_backends()[:len(BACKENDS)]
-    assert len(BACKENDS) == 9
+    """The JAX package's 15 backends, in its registration order, with the
+    same oracles, fused entries and backward rule."""
+    assert BACKENDS == RQM.list_backends()
+    assert BACKENDS[9:] == ("msr4_lut", "msr4", "drum6_lut", "drum6",
+                            "posneg_lut", "posneg")
+    assert len(BACKENDS) == 15
     for name in BACKENDS:
         assert QM.get_backend(name).oracle == RQM.get_backend(name).oracle
         assert (QM.get_backend(name).fused is None) == (
             RQM.get_backend(name).fused is None)
+        assert QM.get_backend(name).grad == RQM.get_backend(name).grad \
+            == "ste"
+    assert list(QM.backend_notes()) == list(BACKENDS)
+    with pytest.raises(ValueError, match="unknown grad rule"):
+        QM.register_backend("no_grad", lambda x, w, c: None, grad="exact")
+    assert "no_grad" not in QM.list_backends()
     with pytest.raises(KeyError, match="unknown quant backend"):
         QM.get_backend("no_such_backend")
     with pytest.raises(ValueError, match="already registered"):
@@ -65,7 +74,8 @@ def test_quant_config_fields_and_presets():
     assert ours == ref
     for preset in ("BF16", "INT8", "APPROX_LUT", "APPROX_DEFICIT",
                    "APPROX_STAGE1", "APPROX_RANK1", "APPROX_DEFICIT_PALLAS",
-                   "APPROX_STAGE1_PALLAS", "APPROX_RANK1_PALLAS"):
+                   "APPROX_STAGE1_PALLAS", "APPROX_RANK1_PALLAS", "MSR4",
+                   "DRUM6", "POSNEG"):
         assert dataclasses.asdict(getattr(Q, preset)) == \
             dataclasses.asdict(getattr(RQ, preset))
 
@@ -132,6 +142,9 @@ def _oracle_table(name):
         sgn = np.sign(sv)[:, None] * np.sign(sv)[None, :]
         return QM.stage1_exhaustive_products()[mag[:, None], mag[None, :]] \
             * sgn
+    kind = name.split("_")[0]
+    if kind in truncation.KINDS:
+        return truncation.product_table(kind)
     return luts.signed_product_lut(proposed_multiplier())
 
 
