@@ -19,7 +19,8 @@ Phases, each printing its seconds:
             design and design13), ragged and batched shapes across the
             tile seams of both kernels (K past one staged x slab of the
             tensor-core kernel too), and the LeNet-5, Keras CNN and FFDNet
-            layer shapes (the suites' FFDNet too); hold every backend's
+            layer shapes (the suites' FFDNet too) and smollm-135m's
+            decode (4 slots of one row) and prefill shapes; hold every backend's
             int32 output to the JAX
             package's (src/repro_torch/testdata/reference.npz); time each
             entry (fused_matmul[exact] in turns with torch._int_mm), its
@@ -55,10 +56,34 @@ Phases, each printing its seconds:
             ms per training step (CUDA events at each batch), one profiled
             step, cuDNN deterministic against not, and each sweep point's
             seconds; the artifacts are written to build/torch_eval/;
-7. launch counts, set to 0 before each of phases 4, 5 and 6 (the suite
-   runners' calls) and read after it: LeNet-5 and FFDNet each launch every
-   entry but fused_matmul[exact], the suites every fused entry;
-8. one JSON line ``{"suites": {...}}`` and one ``{"kernels": [...]}``;
+7. serve    full-width smollm-135m (30 layers, d_model 576, vocab
+            49152, 134.5 M bf16 parameters from the port's own init at
+            seed 0) through repro_torch.serve.Engine, continuous batching
+            with the paged prefix cache, on the JAX package's serve-suite
+            workload (8 requests into 4 slots, max_len 112, an 8-token
+            shared prefix): under bf16, int8_exact, the oracles approx_lut
+            and approx_stage1 and the three CUDA backends. Each CUDA
+            backend's served tokens and every logits row it sampled from
+            equal its oracle's bit for bit; approx_stage1_pallas unfused
+            (kernel K1) equals its fused run; the probe request (admitted
+            mid-decode on a prefix-cache hit) served alone on a cold engine
+            gives the same tokens; the prefix hit rate is above 0; one
+            decode step launches 211 kernels (7 projections x 30 layers +
+            the head). Each backend serves the workload twice (the tokens
+            must agree); per run, ms per decode step (median, host clock
+            around each step, synchronized), TTFT and tokens/s. Per
+            backend, a fixed-shape decode step of the 4-slot pool timed
+            over 20 calls (median and quartiles) and one profiled call's
+            busy ms, port-kernel ms and idle share; the rank1 operand
+            build at the head. Then ``python -m
+            repro_torch.serve --backend approx_deficit_pallas`` runs once;
+8. launch counts, set to 0 before each of phases 4, 5 and 6 (the suite
+   runners' calls) and 7 (the served runs) and read after it: LeNet-5 and
+   FFDNet each launch every entry but fused_matmul[exact], the suites
+   every fused entry, the serve path K2[deficit], K2[stage1], K4 and
+   (unfused) K1[stage1];
+9. one JSON line each ``{"suites": {...}}``, ``{"serve": {...}}`` and
+   ``{"kernels": [...]}``;
 then the ``nvidia-smi`` name and power limit, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure raises: the script exits
 non-zero and prints no result. It imports nothing of JAX.
@@ -68,6 +93,7 @@ from __future__ import annotations
 import contextlib
 import functools
 import json
+import os
 import re
 import statistics
 import subprocess
@@ -130,6 +156,9 @@ PATH_VARIANTS = [r[:2] for r in ROWS if r[1] != "exact"]
 # the suites' sweeps take the fused route of each CUDA backend
 SUITE_VARIANTS = [("fused_matmul", "deficit"), ("fused_matmul", "stage1"),
                   ("rank1_fused_matmul", "rank1")]
+# the serve phase: per-token (for_lm) routes of the CUDA backends, fused,
+# and approx_stage1_pallas once unfused
+SERVE_VARIANTS = SUITE_VARIANTS + [("approx_matmul", "stage1")]
 
 LENET_LAYERS = {  # (B, M, K, N) of each quantized matmul at batch 50
     "lenet5.c1": (50, 784, 25, 6), "lenet5.c2": (50, 196, 150, 16),
@@ -146,6 +175,12 @@ SUITE_LAYERS = {  # the denoise suite's FFDNet (depth 6, width 32), 16 images
     "suite.ffdnet.in": (16, 1024, 45, 32),
     "suite.ffdnet.mid": (16, 1024, 288, 32),
     "suite.ffdnet.out": (16, 1024, 288, 4)}
+SERVE_LAYERS = {  # smollm-135m: a decode step of 4 slots, one prefill
+    "smollm.decode.q": (4, 1, 576, 576), "smollm.decode.kv": (4, 1, 576, 192),
+    "smollm.decode.up": (4, 1, 576, 1536),
+    "smollm.decode.down": (4, 1, 1536, 576),
+    "smollm.decode.head": (4, 1, 576, 49152),
+    "smollm.prefill.up": (1, 32, 576, 1536)}
 TIMED_LAYER = "ffdnet.mid"
 FORWARD_REPS = 10
 
@@ -230,13 +265,17 @@ def main() -> int:
     with Phase("suites"):
         suites, paths["suites"] = suites_phase(torch, detail, "cuda",
                                                smoke=False)
+    with Phase("serve"):
+        serve, paths["serve"] = serve_phase(torch, detail, "cuda", full=True,
+                                            ops=ops)
 
     with Phase("launches"):
         for name, var, _ in ROWS:
             print(f"launches {name}[{var}]: " + ", ".join(
                 f"{path} {c[(name, var)]}" for path, c in paths.items()))
         for path, counts in paths.items():
-            need = SUITE_VARIANTS if path == "suites" else PATH_VARIANTS
+            need = {"suites": SUITE_VARIANTS, "serve": SERVE_VARIANTS}.get(
+                path, PATH_VARIANTS)
             for name, var in need:
                 check(counts[(name, var)] > 0,
                       f"{name}[{var}] was not launched on the {path} path")
@@ -254,6 +293,7 @@ def main() -> int:
     DETAIL.parent.mkdir(parents=True, exist_ok=True)
     DETAIL.write_text(json.dumps(detail, indent=1))
     print(json.dumps({"suites": suites}, separators=(",", ":")))
+    print(json.dumps({"serve": serve}, separators=(",", ":")))
     print(json.dumps({"kernels": rows}))
     print(smi_line())
     print(json.dumps({"ok": True, "device": {
@@ -346,13 +386,16 @@ def _max_err(a, b) -> float:
 
 
 def _bound(name, variant, rows, k, n, fac, ops) -> tuple:
-    """(bound_ms, bound_by): the larger of the operand/result bytes over
-    the memory rate and the operations over the card's rate for them.
-    EXACT is one int8 MAC per pair and RANK1 1 + R * nd (the exact dot and
-    one per factor and digit plane), on the int8 tensor cores; its bytes
-    count the weight planes the wrapper builds (nd * K * R * N) in place
-    of w's own. The CUDA-core bodies count their SASS instructions per
-    pair over the issue rate."""
+    """(bound_ms, bound_by): the larger of the entry's operand/result
+    bytes (x and w read once, the output written once) over the memory
+    rate and the operations over the card's rate for them. EXACT is one
+    int8 MAC per pair and RANK1 1 + R * nd (the exact dot and one per
+    factor and digit plane), on the int8 tensor cores. The weight planes
+    RANK1's wrapper builds (nd * K * R * N bytes) are its own choice of
+    operand, not the function's work: their build is timed apart
+    (``operands_ms``) and their stream given as ``_planes_ms``. The
+    CUDA-core bodies count their SASS instructions per pair over the
+    issue rate."""
     fused = name in ("fused_matmul", "rank1_fused_matmul")
     nbytes = rows * k + k * n + rows * n * 4 + (2 * n * 4 if fused else 0)
     macs = rows * k * n
@@ -360,12 +403,18 @@ def _bound(name, variant, rows, k, n, fac, ops) -> tuple:
         t_ops = 2 * macs / INT8_TC_OPS_PER_S
     elif variant == "rank1":
         t_ops = 2 * macs * (1 + fac.R * fac.n_digits) / INT8_TC_OPS_PER_S
-        nbytes += fac.n_digits * k * fac.R * n
     else:
         t_ops = macs * ops[variant] / INT_ISSUE_OPS_PER_S
     t_bytes = nbytes / HBM_BYTES_PER_S
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
+
+
+def _planes_ms(k, n, fac) -> float:
+    """Milliseconds to stream RANK1's weight planes (nd * K * R * N int8)
+    once from memory: what the wrapper's choice of operand adds on top of
+    the function's bound."""
+    return fac.n_digits * k * fac.R * n / HBM_BYTES_PER_S * 1e3
 
 
 def sass_ops_per_pair(K, sass) -> dict:
@@ -471,7 +520,7 @@ def kernels_phase(torch, K, detail, ops):
     shapes = {"ragged(1000,577,65)": (1, 1000, 577, 65),
               "ragged(3,1,1)": (1, 3, 1, 1),
               "batched(4,333,150,70)": (4, 333, 150, 70),
-              **TC_SEAMS, **LAYERS, **SUITE_LAYERS}
+              **TC_SEAMS, **LAYERS, **SUITE_LAYERS, **SERVE_LAYERS}
     errs = {r[:2]: 0.0 for r in ROWS}
     per_layer, timed = [], []
     for label, (bb, m, k, n) in shapes.items():
@@ -489,7 +538,7 @@ def kernels_phase(torch, K, detail, ops):
                     check(got.dtype == want.dtype and torch.equal(got, want),
                           f"{name}[{var}] {design} relu={relu} differs from "
                           f"its plain version at {label}: max |diff| {err}")
-            if label in LAYERS:
+            if label in LAYERS or label in SERVE_LAYERS:
                 kern = functools.partial(_call, K, name, var, x, w, scale,
                                          bias, False, False)
                 pms = _ms(torch, lambda: _call(K, name, var, x, w, scale,
@@ -523,8 +572,12 @@ def kernels_phase(torch, K, detail, ops):
                     "shape": [bb, m, k, n], "kernel_ms": kms,
                     "plain_ms": pms, "library_ms": lib,
                     "operands_ms": operands_ms,
-                    "bound_ms": bound, "bound_by": by})
+                    "bound_ms": bound, "bound_by": by,
+                    **({"planes_ms": _planes_ms(k, n, fac)}
+                       if var == "rank1" else {})})
         print(f"  {label}: every entry equals its plain version")
+        del x, w, scale, bias
+        torch.cuda.empty_cache()       # the head's plain rank1 takes ~22 GB
     for row, ms in zip(per_layer, _device_ms(torch, timed, 5)):
         row["device_ms"] = ms
     detail["per_layer"] = per_layer
@@ -534,7 +587,9 @@ def kernels_phase(torch, K, detail, ops):
               f"{row['plain_ms']:.2f} ms  library {row['library_ms']}  "
               f"device {row['device_ms']:.4f} ms  "
               f"operands {row['operands_ms']}  "
-              f"bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
+              f"bound {row['bound_ms']:.4f} ms ({row['bound_by']})"
+              + (f"  planes {row['planes_ms']:.4f} ms"
+                 if "planes_ms" in row else ""))
 
     rows = []
     for name, var, replaces in ROWS:
@@ -1124,6 +1179,295 @@ def suites_phase(torch, detail, dev: str, smoke: bool) -> dict:
     out["training"] = training_checks(torch, detail, dev, smoke)
     print("  every *_pallas row equals its oracle's and every MSR core row "
           "its *_lut row, in both task suites")
+    return out, launches
+
+
+# ---------------------------------------------------------------------------
+# Phase 7: serving smollm-135m at full width
+# ---------------------------------------------------------------------------
+
+SERVE_ORACLES = ("bf16", "int8_exact", "approx_lut", "approx_stage1")
+SERVE_KERNEL = {"approx_deficit_pallas": "deficit",   # the body each CUDA
+                "approx_stage1_pallas": "stage1",     # backend's fused
+                "approx_rank1_pallas": "rank1"}       # route launches
+SERVE_UNFUSED = "approx_stage1_pallas"
+SHARED_PREFIX = 8        # one full page at the engine's page_size 8
+PROJECTIONS_PER_LAYER = 7   # q, k, v, o, gate, up, down
+SERVE_REPS = 2           # the workload served this many times per backend
+STEP_REPS = 20           # timed calls of a fixed-shape decode step
+
+
+def serve_workload(vocab: int, smoke: bool, seed: int):
+    """The JAX package's serve-suite workload (src/repro/eval/serve.py,
+    ``workload``): mixed prompt lengths and budgets behind a shared system
+    prefix, more requests than slots, so that the last request is admitted
+    mid-decode on a prefix-cache hit. Returns (requests, slots, max_len)
+    with requests = [(rid, prompt, max_new), ...]."""
+    rng = np.random.default_rng(seed + 11)
+    if smoke:
+        n_req, slots, max_len = 4, 3, 48
+        lens, news = rng.integers(2, 9, n_req), rng.integers(3, 7, n_req)
+    else:
+        n_req, slots, max_len = 8, 4, 112
+        lens, news = rng.integers(4, 25, n_req), rng.integers(8, 17, n_req)
+    shared = rng.integers(0, vocab, SHARED_PREFIX).astype(np.int32)
+    reqs = [(rid,
+             np.concatenate([shared, rng.integers(0, vocab, int(lens[rid]))
+                             .astype(np.int32)]),
+             int(news[rid])) for rid in range(n_req)]
+    return reqs, slots, max_len
+
+
+class ServeRecorder:
+    """For the length of a ``with``: records every logits row the serving
+    engine samples from, keyed by (rid, step), and the host milliseconds of
+    each decode step of ``engine`` (synchronized before and after)."""
+
+    def __init__(self, torch, PE, engine, dev: str):
+        self.torch, self.PE, self.engine, self.dev = torch, PE, engine, dev
+        self.rows, self.step_ms = {}, []
+
+    def __enter__(self):
+        self.sample = self.PE.sample_token
+        self.decode = decode = self.engine._decode
+
+        def record(logits, scfg, rid, step):
+            self.rows[(rid, step)] = np.array(logits, np.float32)
+            return self.sample(logits, scfg, rid, step)
+
+        def timed(*args):
+            _sync(self.torch, self.dev)
+            t0 = time.perf_counter()
+            out = decode(*args)
+            _sync(self.torch, self.dev)
+            self.step_ms.append((time.perf_counter() - t0) * 1e3)
+            return out
+
+        self.PE.sample_token = record
+        self.engine._decode = timed
+        return self
+
+    def __exit__(self, *exc):
+        self.PE.sample_token = self.sample
+        self.engine._decode = self.decode
+        return False
+
+
+def _serve_shapes(cfg) -> list:
+    """(K, N) of every projection launch of one forward, in order."""
+    d, f, kvd = cfg.d_model, cfg.d_ff, cfg.n_kv_heads * cfg.dh
+    qd = cfg.n_heads * cfg.dh
+    layer = [(d, qd), (d, kvd), (d, kvd), (qd, d), (d, f), (d, f), (f, d)]
+    return layer * cfg.n_layers + [(d, cfg.padded_vocab)]
+
+
+def _serve_bound_ms(cfg, rows: int, variant: str, ops, fac) -> float:
+    """Least time of one forward's kernel launches at ``rows`` rows each:
+    the sum of each launch's bound (the launches run one after another)."""
+    name = "rank1_fused_matmul" if variant == "rank1" else "fused_matmul"
+    return sum(_bound(name, variant, rows, k, n, fac, ops)[0]
+               for k, n in _serve_shapes(cfg))
+
+
+def serve_phase(torch, detail, dev: str, full: bool, ops=None) -> tuple:
+    """Serve the workload under each backend on ``dev`` and check it (see
+    the module docstring, phase 7). ``full`` is the card's run at
+    smollm-135m's published width; without it a 2-layer, 64-wide smollm
+    on the serve suite's smoke workload (the CPU rehearsal). Returns the
+    serve line and the kernel launches of the served runs (counts set to 0
+    before each run and read after it)."""
+    import dataclasses
+    from repro_torch.configs import registry
+    from repro_torch.core import factor as F
+    from repro_torch.kernels import approx_matmul as K
+    from repro_torch.models import transformer_lm as TLM
+    from repro_torch.nn.module import n_params
+    from repro_torch.quant import matmul as QM
+    from repro_torch.quant.quantize import for_lm, quantize_dynamic
+    from repro_torch.serve import engine as PE
+
+    if full:
+        cfg0 = registry.get("smollm-135m")
+        check((cfg0.n_layers, cfg0.d_model, cfg0.n_heads, cfg0.n_kv_heads,
+               cfg0.d_ff, cfg0.vocab, cfg0.param_dtype) ==
+              (30, 576, 9, 3, 1536, 49152, torch.bfloat16)
+              and n_params(TLM.descs(cfg0)) == 134_515_008,
+              f"unexpected smollm-135m config {cfg0}")
+    else:
+        cfg0 = registry.reduced("smollm-135m", n_layers=2, d_model=64,
+                                n_heads=4, n_kv_heads=2, d_ff=128, vocab=64,
+                                vocab_pad=64, head_dim=16,
+                                param_dtype=torch.bfloat16)
+    params = TLM.init(cfg0, torch.Generator().manual_seed(0), device=dev)
+    reqs, slots, max_len = serve_workload(cfg0.vocab, smoke=not full, seed=0)
+    probe = reqs[-1]
+    launches = {key: 0 for key in launch_counts(K)}
+
+    def engine(cfg):
+        return PE.Engine(cfg, params, slots=slots, max_len=max_len,
+                         device=dev)
+
+    def served(cfg):
+        eng = engine(cfg)
+        with torch.no_grad():          # warm the backend's tables
+            c = TLM.init_cache(cfg, 1, 16, torch.float32, dev)
+            _, c = TLM.prefill(params, torch.zeros((1, 8), dtype=torch.int64,
+                                                   device=dev), cfg, c)
+            TLM.decode_step(params, torch.zeros((1, 1), dtype=torch.int64,
+                                                device=dev), 8, cfg, c)
+        for rid, prompt, max_new in reqs:
+            eng.submit(PE.ServeRequest(rid=rid, prompt=prompt,
+                                       max_new=max_new))
+        K.reset_launch_counts()
+        with ServeRecorder(torch, PE, eng, dev) as rec:
+            stats = eng.run()
+        for key, n in launch_counts(K).items():
+            launches[key] += n
+        toks = {r.rid: list(r.output) for r in eng.completed}
+        return eng, toks, rec, stats
+
+    fac = F.factorize("proposed")
+    runs, out = {}, {}
+    for be in SERVE_ORACLES + CUDA_BACKENDS:
+        cfg = dataclasses.replace(cfg0, quant=for_lm(be))
+        reps = []
+        for rep in range(SERVE_REPS):
+            eng, toks, rec, stats = served(cfg)
+            check(len(toks) == len(reqs) and all(toks.values()),
+                  f"{be}: not every request was served")
+            check(all(np.isfinite(r).all() and r.shape == (cfg0.padded_vocab,)
+                      for r in rec.rows.values()), f"{be}: bad logits rows")
+            check(stats["prefix_hit_rate"] > 0, f"{be}: no prefix-cache hit")
+            check(stats["waves"] >= 2, f"{be}: no mid-decode admission")
+            if rep == 0:
+                runs[be] = (toks, rec.rows)
+            check(toks == runs[be][0],
+                  f"{be}: the workload served again gave other tokens")
+            reps.append({
+                "decode_step_ms_median": statistics.median(rec.step_ms),
+                "decode_steps": stats["decode_steps"],
+                "ttft_ms_mean": stats["ttft_ms_mean"],
+                "ttft_ms_max": stats["ttft_ms_max"],
+                "tok_per_s": stats["tok_per_s"],
+                "new_tokens": stats["new_tokens"],
+                "elapsed_s": stats["elapsed_s"]})
+            detail[f"serve_step_ms {be} rep {rep}"] = rec.step_ms
+        row = {"reps": reps, "prefix_hit_rate": stats["prefix_hit_rate"]}
+        if dev == "cuda":
+            tok = torch.arange(1, slots + 1, device=dev)[:, None]
+            pos = torch.arange(slots, device=dev) * 10 + 40
+
+            def step():
+                with torch.no_grad():
+                    eng._decode(params, eng.pool, tok, pos)
+
+            step()
+            fixed = _forward_ms(torch, step, STEP_REPS)
+            q1, _, q3 = statistics.quantiles(fixed, n=4)
+            row["fixed_step_ms"] = {"median": statistics.median(fixed),
+                                    "q1": q1, "q3": q3, "n": STEP_REPS}
+            detail[f"serve_fixed_step_ms {be}"] = fixed
+            prof = _profile_ms(torch, step)
+            row.update(prof)
+            row["idle_share"] = 1 - prof["device_busy_ms"] / row[
+                "fixed_step_ms"]["median"]
+            if be in CUDA_BACKENDS:
+                row["step_bound_ms"] = _serve_bound_ms(
+                    cfg0, slots, SERVE_KERNEL[be], ops, fac)
+                if SERVE_KERNEL[be] == "rank1":
+                    row["step_planes_ms"] = sum(
+                        _planes_ms(k, n, fac) for k, n in _serve_shapes(cfg0))
+                K.reset_launch_counts()
+                step()
+                n = sum(getattr(K, name).launches for name in
+                        ("approx_matmul", "fused_matmul", "rank1_matmul",
+                         "rank1_fused_matmul"))
+                check(n == PROJECTIONS_PER_LAYER * cfg0.n_layers + 1,
+                      f"{be}: {n} kernel launches in one decode step")
+                row["launches_per_step"] = n
+        out[be] = row
+        print(f"  serve {be:22s} served {SERVE_REPS}x: decode step median "
+              + " / ".join(f"{r['decode_step_ms_median']:.3f}" for r in reps)
+              + f" ms (of {len(rec.step_ms)}), TTFT mean "
+              + " / ".join(f"{r['ttft_ms_mean']:.1f}" for r in reps)
+              + " ms, " + " / ".join(f"{r['tok_per_s']:.2f}" for r in reps)
+              + " tok/s"
+              + (f"; fixed step {row['fixed_step_ms']['median']:.3f} ms "
+                 f"({row['fixed_step_ms']['q1']:.3f}-"
+                 f"{row['fixed_step_ms']['q3']:.3f}, {STEP_REPS} calls), "
+                 f"profiled: busy {row['device_busy_ms']:.3f} ms, "
+                 f"port kernels {row['kernels_ms']:.3f} ms, idle share "
+                 f"{row['idle_share']:.2f}" if dev == "cuda" else "")
+              + (f", bound {row['step_bound_ms']:.3f} ms"
+                 if "step_bound_ms" in row else "")
+              + (f" (+ planes {row['step_planes_ms']:.3f} ms)"
+                 if "step_planes_ms" in row else ""), flush=True)
+        # the probe, alone on a cold engine of the same pool shape
+        if be in CUDA_BACKENDS:
+            solo = engine(cfg)
+            solo.submit(PE.ServeRequest(rid=probe[0], prompt=probe[1],
+                                        max_new=probe[2]))
+            K.reset_launch_counts()
+            solo.run()
+            for key, n in launch_counts(K).items():
+                launches[key] += n
+            check(list(solo.completed[0].output) == toks[probe[0]],
+                  f"{be}: the probe served alone differs from batched")
+            row["solo_match"] = True
+        del eng
+
+    for be in CUDA_BACKENDS:
+        oracle = QM.get_backend(be).oracle
+        (toks, rows), (otoks, orows) = runs[be], runs[oracle]
+        check(toks == otoks, f"{be}: served tokens differ from {oracle}'s")
+        check(rows.keys() == orows.keys(),
+              f"{be}: sampled at other steps than {oracle}")
+        for key, r in rows.items():
+            check(np.array_equal(r, orows[key]),
+                  f"{be}: logits at (rid, step) {key} differ from "
+                  f"{oracle}'s")
+        out[be]["oracle_bitwise_rows"] = len(rows)
+    print("  CUDA backends: served tokens and every sampled logits row "
+          "bitwise equal to the oracle's; probe alone == batched")
+    cfg = dataclasses.replace(cfg0, quant=dataclasses.replace(
+        for_lm(SERVE_UNFUSED), fuse_epilogue=False))
+    _, toks, rec, _ = served(cfg)
+    check(toks == runs[SERVE_UNFUSED][0] and all(
+        np.array_equal(r, runs[SERVE_UNFUSED][1][k])
+        for k, r in rec.rows.items()),
+        f"{SERVE_UNFUSED} unfused (K1) differs from fused")
+    print(f"  {SERVE_UNFUSED} unfused (K1): tokens and logits bitwise equal "
+          "to the fused run")
+    out["config"] = {"arch": cfg0.name, "n_layers": cfg0.n_layers,
+                     "d_model": cfg0.d_model, "vocab": cfg0.vocab,
+                     "params": n_params(TLM.descs(cfg0)),
+                     "param_dtype": str(cfg0.param_dtype), "slots": slots,
+                     "max_len": max_len, "requests": len(reqs),
+                     "cache_dtype": "float32", "seed": 0}
+    if dev == "cuda":
+        table = params["embed"]["table"]
+        w_q = quantize_dynamic(table.t(), axis=0)[0].contiguous()
+        out["rank1_operand_build_ms_head"] = _ms(torch, lambda: (
+            K.exact_weight_operand(w_q), K.rank1_weight_planes(w_q)), 3)
+        print(f"  rank1 operand build at the head (576 x 49152): "
+              f"{out['rank1_operand_build_ms_head']:.3f} ms")
+        del runs
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        cli = subprocess.run(
+            [sys.executable, "-m", "repro_torch.serve", "--backend",
+             "approx_deficit_pallas"], cwd=ROOT, capture_output=True,
+            text=True, timeout=600,
+            env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+        check(cli.returncode == 0, "python -m repro_torch.serve failed:\n"
+              + cli.stdout[-2000:] + cli.stderr[-4000:])
+        last = cli.stdout.strip().splitlines()
+        check(any("backend=approx_deficit_pallas" in ln for ln in last),
+              "python -m repro_torch.serve printed no summary")
+        out["cli_s"] = time.perf_counter() - t0
+        print(f"  python -m repro_torch.serve --backend "
+              f"approx_deficit_pallas ({out['cli_s']:.1f} s): {last[0]}; "
+              f"{last[-1]}")
     return out, launches
 
 

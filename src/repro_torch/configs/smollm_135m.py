@@ -1,0 +1,11 @@
+"""smollm-135m [dense] — llama-arch small [hf:HuggingFaceTB/SmolLM-135M]."""
+import torch
+
+from repro_torch.models.transformer_lm import ArchConfig
+
+CONFIG = ArchConfig(
+    name="smollm-135m", family="dense",
+    n_layers=30, d_model=576, n_heads=9, n_kv_heads=3, d_ff=1536,
+    vocab=49152, head_dim=64, tied_embeddings=True,
+    param_dtype=torch.bfloat16,
+)

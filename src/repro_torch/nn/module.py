@@ -1,10 +1,11 @@
 """Minimal functional module system: parameter descriptors -> params.
 
-A model is described by a nested dict of ``ParamDesc`` leaves (shape +
-logical axes + initializer), as in the JAX package; ``init_params`` turns
-it into a nested dict of tensors with the same keys and layout. (The JAX
-package also derives sharding specs from the descriptors; that belongs to
-the port's sharding slice.)
+A model is described by a tree of ``ParamDesc`` leaves (shape + logical
+axes + initializer) in nested dicts and lists, as in the JAX package;
+``init_params`` turns it into the same tree of tensors, with the same keys
+and layouts, and ``stack`` prepends a layer axis for the stacked layer
+groups of the transformer LM. (The JAX package also derives sharding specs
+from the descriptors; that belongs to the port's sharding slice.)
 """
 from __future__ import annotations
 
@@ -40,12 +41,22 @@ class ParamDesc:
                              f"{self.logical} differ in rank")
 
 
-def _leaves(tree, prefix=()):
+def tree_map(fn, tree):
+    """``fn`` over every ``ParamDesc`` leaf of a tree of dicts and lists, in
+    insertion order; the result has the tree's structure."""
     if isinstance(tree, ParamDesc):
-        yield prefix, tree
-        return
-    for key, sub in tree.items():
-        yield from _leaves(sub, prefix + (key,))
+        return fn(tree)
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, v) for v in tree)
+    raise TypeError(f"not a descriptor tree node: {type(tree).__name__}")
+
+
+def _leaves(tree) -> list:
+    out: list = []
+    tree_map(out.append, tree)
+    return out
 
 
 def _init_one(d: ParamDesc, generator: torch.Generator) -> torch.Tensor:
@@ -70,11 +81,18 @@ def init_params(tree, generator: torch.Generator, device="cuda"):
     ``device``. (The numbers differ from the JAX package's, whose RNG is
     another; parity tests pass the reference's params through numpy.)"""
     dev = resolve_device(device)
-    out: dict = {}
-    for path, d in _leaves(tree):
-        node = out
-        for key in path[:-1]:
-            node = node.setdefault(key, {})
-        node[path[-1]] = _init_one(d, generator).to(dev)
-    return out
+    return tree_map(lambda d: _init_one(d, generator).to(dev), tree)
+
+
+def stack(tree, n: int, logical: str = "layers"):
+    """Prepend a stacked dim of size n (the layer axis of a group of
+    identical layers). As in the JAX package, ``init_params`` then takes
+    the fan-in over every dim but the last, the stacked one included, so a
+    stacked (L, d, f) weight draws at scale (L * d) ** -0.5."""
+    return tree_map(lambda d: dataclasses.replace(
+        d, shape=(n,) + d.shape, logical=(logical,) + d.logical), tree)
+
+
+def n_params(tree) -> int:
+    return int(sum(np.prod(d.shape) for d in _leaves(tree)))
 

@@ -414,7 +414,14 @@ class _QuantizedMatmul(torch.autograd.Function):
 
 
 def _qmm_forward(x, w, bias, cfg: QuantConfig, activation):
-    """Shared quantize -> backend -> dequant/epilogue composition."""
+    """Shared quantize -> backend -> dequant/epilogue composition.
+
+    Every backend gets contiguous int8 codes: elementwise ops keep their
+    input's strides, so the codes of a transposed weight (the tied LM
+    head's ``table.T``) would otherwise reach the CUDA kernels, which take
+    contiguous operands only. The per-token epilogue keeps the JAX
+    package's order (which it pins with ``_pin``): ``acc * sw`` (in the
+    kernel on the fused route), then ``* sx``, then bias and activation."""
     backend = get_backend(cfg.backend)
     lead = x.shape[:-1]
     k = x.shape[-1]
@@ -427,7 +434,7 @@ def _qmm_forward(x, w, bias, cfg: QuantConfig, activation):
         sw = abs_max_scale(w, axis=0, keepdims=True)   # (1, n)
     else:
         sw = abs_max_scale(w)
-    w_q = quantize(w, sw)
+    w_q = quantize(w, sw).contiguous()
 
     if backend.fused is not None and cfg.fuse_epilogue:
         # (B, T, K): leading dims become the kernel's batched rows
@@ -435,14 +442,14 @@ def _qmm_forward(x, w, bias, cfg: QuantConfig, activation):
         zeros = torch.zeros((1, n), dtype=torch.float32, device=x.device)
         if per_token:
             sx = abs_max_scale(x3, axis=-1, keepdims=True)  # (..., M, 1)
-            x_q = quantize(x3, sx)
+            x_q = quantize(x3, sx).contiguous()
             scale = sw.to(torch.float32).reshape(1, -1).expand(1, n)
             y = backend.fused(x_q, w_q, cfg, scale.contiguous(), zeros,
                               False)
             y = _float_epilogue(y * sx, bias, activation)
         else:
             sx = abs_max_scale(x3, axis=None, keepdims=False)
-            x_q = quantize(x3, sx)
+            x_q = quantize(x3, sx).contiguous()
             scale = (sx * sw).reshape(1, -1).expand(1, n).contiguous()
             b_arr = (zeros if bias is None
                      else bias.to(torch.float32).reshape(1, n).contiguous())
@@ -452,7 +459,7 @@ def _qmm_forward(x, w, bias, cfg: QuantConfig, activation):
         x2 = x.reshape(-1, k)
         sx = abs_max_scale(x2, axis=-1 if per_token else None,
                            keepdims=per_token)   # (M, 1) | scalar
-        x_q = quantize(x2, sx)
+        x_q = quantize(x2, sx).contiguous()
         acc = backend.fn(x_q, w_q, cfg).to(torch.float32)
         y = (acc * sw) * sx if per_token else acc * (sx * sw)
         y = _float_epilogue(y, bias, activation)

@@ -74,6 +74,18 @@ class QuantConfig:
         return self.backend.startswith("approx")
 
 
+def for_lm(backend: str, multiplier: str = "proposed") -> QuantConfig:
+    """QuantConfig for transformer inference: per-token activation scales,
+    so that a token's int8 codes (and so every backend's int32
+    accumulators) depend on its own activation row only, whichever other
+    tokens share the batch: prefill and decode agree on them, and so does
+    a request served alone or in a full slot pool."""
+    if backend == "bf16":
+        return BF16
+    return QuantConfig(backend=backend, multiplier=multiplier,
+                       act_scale="per_token")
+
+
 BF16 = QuantConfig()
 INT8 = QuantConfig(backend="int8_exact")
 APPROX_LUT = QuantConfig(backend="approx_lut")
