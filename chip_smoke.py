@@ -10,22 +10,29 @@ Phases, each printing its seconds:
 2. build    compile the CUDA kernels with nvcc for sm_90a from the
             repository's sources (src/repro_torch/kernels/csrc, one nvcc
             per source, in parallel), read from their SASS the
-            instructions the CUDA-core bodies spend per operand pair (the
-            operation counts of their bounds), and require int8
-            tensor-core instructions in the tensor-core kernel's SASS;
+            integer instructions and table lookups the CUDA-core body
+            spends per operand pair (the operation counts of its bound),
+            and require int8 tensor-core instructions in the tensor-core
+            kernel's SASS;
 3. kernels  hold every kernel entry and variant to its plain PyTorch
             version on the card, bitwise: all 256 x 256 int8 byte pairs at
             K = 1 against the numpy product tables (rank1 for the proposed
-            design and design13), ragged and batched shapes across the
-            tile seams of both kernels (K past one staged x slab of the
-            tensor-core kernel too), and the LeNet-5, Keras CNN and FFDNet
+            design and design13, deficit under all 7 designs), ragged and
+            batched shapes across the tile seams of both kernels (K past
+            one staged x slab of the tensor-core kernel too; rows across
+            the CUDA-core kernel's row tiles, K split into slices with a
+            ragged last one, ragged N), an int32 sum past 2^31 through a
+            67-slice split of K, and the LeNet-5, Keras CNN and FFDNet
             layer shapes (the suites' FFDNet too) and smollm-135m's
             decode (4 slots of one row) and prefill shapes; hold every backend's
             int32 output to the JAX
             package's (src/repro_torch/testdata/reference.npz); time each
             entry (fused_matmul[exact] in turns with torch._int_mm), its
-            kernel's device time under torch.profiler, and for the
-            tensor-core entries the build of their weight operands;
+            kernel's device time under torch.profiler, for the CUDA-core
+            entries the plan (tiles, K slices), and for the tensor-core
+            entries the build of their weight operands; K2[deficit]'s
+            device time on uniform, constant and post-ReLU operands (what
+            the table lookups' bank conflicts cost);
 4. lenet5   eval_classifier on 500 synthetic digits with the fixture's
             JAX-trained weights under bf16, int8_exact and every approx
             backend: each CUDA backend's accuracy equals its oracle's, the
@@ -91,6 +98,7 @@ non-zero and prints no result. It imports nothing of JAX.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import functools
 import json
 import os
@@ -121,6 +129,9 @@ TC_SOURCE = "src/repro_torch/kernels/csrc/tc_matmul.cu"
 HBM_BYTES_PER_S = 3.35e12
 INT8_TC_OPS_PER_S = 1979e12
 INT_ISSUE_OPS_PER_S = 132 * 128 * 1.98e9
+# Shared memory answers 32 lanes (one 4-byte bank each) per clock per SM:
+# at most one table lookup per lane per clock, at the same clock.
+LDS_LOOKUPS_PER_S = 132 * 32 * 1.98e9
 
 # Logits of the two stacks agree within this share of their range: the
 # int8 codes and int32 accumulators are bitwise equal, the float32 pools
@@ -149,6 +160,19 @@ TC_SEAMS = {"seam(65,25,4)": (1, 65, 25, 4), "seam(129,45,9)": (1, 129, 45, 9),
             "seam(129,25,33)": (1, 129, 25, 33),
             "seam(129,2051,9)": (1, 129, 2051, 9),
             "seam(65,1300,17)": (1, 65, 1300, 17)}
+# Seams of the CUDA-core kernel's plans: rows across its row tiles (4, 8,
+# 16, 32, 64), K across its split slices (whole steps of 32, the last
+# ragged), N across its column tiles (16, 32, 64) and ragged.
+CUDA_CORE_SEAMS = {"cc(1,577,65)": (1, 1, 577, 65),
+                   "cc(5,31,4)": (1, 5, 31, 4),
+                   "cc(9,1536,192)": (1, 9, 1536, 192),
+                   "cc(17,3136,10)": (1, 17, 3136, 10),
+                   "cc(2x33,575,17)": (2, 33, 575, 17),
+                   "cc(63,33,1)": (1, 63, 33, 1),
+                   "cc(65,1,576)": (1, 65, 1, 576),
+                   "cc(3,4100,33)": (1, 3, 4100, 33)}
+# an int32 sum that passes 2^31 (every operand 127) through a split of K
+WRAP_SHAPE = (1, 140_000, 65)
 # The variants the LeNet-5 and FFDNet paths (phases 4, 5) must each launch:
 # no caller of the JAX package (nor of the port) selects fused_matmul's
 # "exact" variant.
@@ -246,8 +270,10 @@ def main() -> int:
         sass = SASS.dump(lib)
         ops = sass_ops_per_pair(K, sass)
         detail["ops_per_pair_sass"] = ops
-        print("instructions per pair that combine x and w (SASS): "
-              + ", ".join(f"{k} {v:g}" for k, v in ops.items()))
+        print("per pair, instructions that combine x and w and table "
+              "lookups (SASS): " + ", ".join(
+                  f"{k} {v['alu']:g} + {v['lookups']:g}"
+                  for k, v in ops.items()))
         detail["tc_mma_sass"] = tc_mma_count(sass)
         print("int8 tensor-core instructions in tc_mm_kernel (SASS): "
               + ", ".join(f"{k} {v}" for k, v in
@@ -394,8 +420,9 @@ def _bound(name, variant, rows, k, n, fac, ops) -> tuple:
     RANK1's wrapper builds (nd * K * R * N bytes) are its own choice of
     operand, not the function's work: their build is timed apart
     (``operands_ms``) and their stream given as ``_planes_ms``. The
-    CUDA-core bodies count their SASS instructions per pair over the
-    issue rate."""
+    CUDA-core bodies count their SASS per pair: the integer instructions
+    over the issue rate, or the table lookups over shared memory's lookup
+    rate, whichever takes longer."""
     fused = name in ("fused_matmul", "rank1_fused_matmul")
     nbytes = rows * k + k * n + rows * n * 4 + (2 * n * 4 if fused else 0)
     macs = rows * k * n
@@ -404,7 +431,8 @@ def _bound(name, variant, rows, k, n, fac, ops) -> tuple:
     elif variant == "rank1":
         t_ops = 2 * macs * (1 + fac.R * fac.n_digits) / INT8_TC_OPS_PER_S
     else:
-        t_ops = macs * ops[variant] / INT_ISSUE_OPS_PER_S
+        t_ops = macs * max(ops[variant]["alu"] / INT_ISSUE_OPS_PER_S,
+                           ops[variant]["lookups"] / LDS_LOOKUPS_PER_S)
     t_bytes = nbytes / HBM_BYTES_PER_S
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
@@ -418,28 +446,23 @@ def _planes_ms(k, n, fac) -> float:
 
 
 def sass_ops_per_pair(K, sass) -> dict:
-    """Per CUDA-core body, the integer instructions per (x, w) pair that
-    combine the two operands, counted in the built kernels' SASS
-    (kernels/sass.py): the work per multiply-accumulate no operand reuse
-    removes. Deficit is the proposed design's instantiation."""
-    from repro_torch.kernels import codegen
+    """Per CUDA-core function, the integer instructions and the table
+    lookups per (x, w) pair that combine the two operands, counted in the
+    SASS of the kernel's full 64 x 64 tile (kernels/sass.py): the work per
+    multiply-accumulate that no operand reuse removes. The kernel stages
+    three values per operand; both functions run its one body."""
     from repro_torch.kernels import sass as SASS
     src = K.SOURCE.read_text()
-    tile = tuple(int(re.search(rf"constexpr int {t} = (\d+);", src)
-                     .group(1)) for t in ("TM", "TN"))
+    tm, tx = (int(re.search(rf"constexpr int {t} = (\d+);", src).group(1))
+              for t in ("TM", "TX"))
     fns = SASS.functions(sass)
-
-    def per_pair(body, design=0, loads_per_operand=1):
-        tag = f"approx_mm_kernelILi{body}ELi{design}EE"
-        name = [f for f in fns if tag in f]
-        check(len(name) == 1, f"no single kernel {tag} in the SASS")
-        return SASS.ops_per_pair(SASS.inner_loop(fns[name[0]]), tile,
-                                 loads_per_operand)
-
-    return {
-        "deficit": per_pair(K._BODY["deficit"],
-                            codegen.designs().index("proposed")),
-        "stage1": per_pair(K._BODY["stage1"], loads_per_operand=2)}
+    tag = "approx_mm_kernelILi64ELi64EE"
+    name = [f for f in fns if tag in f]
+    check(len(name) == 1, f"no single kernel {tag} in the SASS")
+    alu, lookups = SASS.ops_per_pair(SASS.inner_loop(fns[name[0]]),
+                                     (tm, 64 // tx), 3)
+    check(lookups == 1, f"{lookups} table lookups a pair in {tag}")
+    return {var: {"alu": alu, "lookups": lookups} for var in K.CUDA_CORE}
 
 
 def tc_mma_count(sass) -> dict:
@@ -463,6 +486,7 @@ def kernels_phase(torch, K, detail, ops):
     from repro_torch.core import luts
     from repro_torch.core import factor as F
     from repro_torch.core.multiplier import proposed_multiplier
+    from repro_torch.kernels import codegen
     from repro_torch.quant import matmul as QM
     from repro_torch.quant.quantize import QuantConfig
 
@@ -497,8 +521,17 @@ def kernels_phase(torch, K, detail, ops):
                           torch.as_tensor(lut13.astype(np.float64))),
               f"{name}[design13] differs from its product table on 2^16 "
               "pairs")
+    for design in codegen.designs():      # each design's correction table
+        lut_d = torch.as_tensor(luts.signed_product_lut(
+            proposed_multiplier(design)).astype(np.float64))
+        for name in ("approx_matmul", "fused_matmul"):
+            out = _call(K, name, "deficit", xs, ws, one, zero, False, False,
+                        design=design)
+            check(torch.equal(out.double().cpu(), lut_d),
+                  f"{name}[deficit] {design} differs from its product table "
+                  "on 2^16 pairs")
     print("all 2^16 byte pairs match the product tables for every entry "
-          "(and rank1 under design13)")
+          "(rank1 under design13 too, deficit under every design)")
 
     # fixture: every backend's int32 output equals the JAX package's
     with np.load(FIXTURE) as data:
@@ -520,7 +553,8 @@ def kernels_phase(torch, K, detail, ops):
     shapes = {"ragged(1000,577,65)": (1, 1000, 577, 65),
               "ragged(3,1,1)": (1, 3, 1, 1),
               "batched(4,333,150,70)": (4, 333, 150, 70),
-              **TC_SEAMS, **LAYERS, **SUITE_LAYERS, **SERVE_LAYERS}
+              **TC_SEAMS, **CUDA_CORE_SEAMS, **LAYERS, **SUITE_LAYERS,
+              **SERVE_LAYERS}
     errs = {r[:2]: 0.0 for r in ROWS}
     per_layer, timed = [], []
     for label, (bb, m, k, n) in shapes.items():
@@ -574,12 +608,23 @@ def kernels_phase(torch, K, detail, ops):
                     "operands_ms": operands_ms,
                     "bound_ms": bound, "bound_by": by,
                     **({"planes_ms": _planes_ms(k, n, fac)}
-                       if var == "rank1" else {})})
+                       if var == "rank1" else {}),
+                    **({"plan": dataclasses.asdict(K.plan(bb * m, k, n))}
+                       if var in K.CUDA_CORE else {})})
         print(f"  {label}: every entry equals its plain version")
         del x, w, scale, bias
         torch.cuda.empty_cache()       # the head's plain rank1 takes ~22 GB
-    for row, ms in zip(per_layer, _device_ms(torch, timed, 5)):
+    wrap_check(torch, K, dev)
+    data_rows, data_calls = table_data_calls(torch, K, gen)
+    # one profiler session: later sessions in one process may see no
+    # device events
+    for row, ms in zip(per_layer + data_rows,
+                       _device_ms(torch, timed + data_calls, 5)):
         row["device_ms"] = ms
+    detail["table_data"] = data_rows
+    for r in data_rows:
+        print(f"  table lookups, {r['layer']} {r['data']}: device "
+              f"{r['device_ms']:.4f} ms")
     detail["per_layer"] = per_layer
     for row in per_layer:
         print(f"  {row['layer']:12s} {row['entry']}[{row['variant']}] "
@@ -589,7 +634,9 @@ def kernels_phase(torch, K, detail, ops):
               f"operands {row['operands_ms']}  "
               f"bound {row['bound_ms']:.4f} ms ({row['bound_by']})"
               + (f"  planes {row['planes_ms']:.4f} ms"
-                 if "planes_ms" in row else ""))
+                 if "planes_ms" in row else "")
+              + (" plan {bm}x{bn}, k slice {k_slice}, {splits} splits"
+                 .format(**row["plan"]) if "plan" in row else ""))
 
     rows = []
     for name, var, replaces in ROWS:
@@ -608,6 +655,62 @@ def kernels_phase(torch, K, detail, ops):
                if var in TC_VARIANTS else {}),
             "_entry": name, "_variant": var})
     return rows
+
+
+def wrap_check(torch, K, dev):
+    """K1 and K2 (with ReLU and without) of both CUDA-core functions equal
+    their plain versions where the int32 sum passes 2^31 and K is split."""
+    m, k, n = WRAP_SHAPE
+    check(K.plan(m, k, n).splits > 1, f"no split at {WRAP_SHAPE}")
+    x = torch.full((m, k), 127, dtype=torch.int8, device=dev)
+    w = torch.full((k, n), 127, dtype=torch.int8, device=dev)
+    scale = torch.full((1, n), 1e-3, device=dev)
+    bias = torch.ones((1, n), device=dev)
+    for var in K.CUDA_CORE:
+        want = K.approx_matmul_plain(x, w, kernel=var)
+        check(bool((want < 0).all()),
+              f"{var}: the sum at {WRAP_SHAPE} does not pass 2^31")
+        check(torch.equal(K.approx_matmul(x, w, kernel=var), want),
+              f"approx_matmul[{var}] differs past 2^31")
+        for relu in (False, True):
+            check(torch.equal(
+                K.fused_matmul(x, w, scale, bias, variant=var, relu=relu),
+                K.fused_matmul_plain(x, w, scale, bias, variant=var,
+                                     relu=relu)),
+                f"fused_matmul[{var}] relu={relu} differs past 2^31")
+    print(f"  wrap{WRAP_SHAPE}: sums past 2^31 through {K.plan(m, k, n).splits}"
+          " K slices equal the plain versions")
+
+
+TABLE_DATA_LAYERS = ("ffdnet.mid", "smollm.decode.q")
+
+
+def table_data_calls(torch, K, gen) -> tuple:
+    """Rows and calls for the device ms of K2[deficit] on three kinds of
+    operands at each of TABLE_DATA_LAYERS: uniform in [-127, 127]
+    (the phase's own), constant (x = w = 77: every lane of a warp reads
+    one table word, so no lookup conflicts in the banks), and post-ReLU
+    activations against centred weights (x = |N(0, 48)| on half the
+    entries, 0 on the rest; w = N(0, 24); both rounded and clipped to
+    127)."""
+    dev = torch.device("cuda")
+    calls, rows = [], []
+    for layer in TABLE_DATA_LAYERS:
+        bb, m, k, n = LAYERS.get(layer) or SERVE_LAYERS[layer]
+        x, w, scale, bias = _operands(torch, gen, bb, m, k, n, dev)
+        act = (torch.randn((bb, m, k), generator=gen) * 48).abs() * (
+            torch.rand((bb, m, k), generator=gen) < 0.5)
+        wgt = torch.randn((k, n), generator=gen) * 24
+        data = {
+            "uniform": (x, w),
+            "constant": (torch.full_like(x, 77), torch.full_like(w, 77)),
+            "relu_gauss": tuple(t.round().clamp(-127, 127).to(torch.int8)
+                                .to(dev) for t in (act, wgt))}
+        for kind, (xd, wd) in data.items():
+            calls.append(functools.partial(K.fused_matmul, xd, wd, scale,
+                                           bias))
+            rows.append({"layer": layer, "data": kind})
+    return rows, calls
 
 
 # ---------------------------------------------------------------------------

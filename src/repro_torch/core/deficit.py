@@ -14,9 +14,10 @@ Stage-2 site inputs are true stage-1 outputs (computed under the approximate
 semantics), so stage-1 compressor outputs and the cheap FA/HA bits must be
 evaluated — but the final adder, cleanup and all bookkeeping vanish. This
 evaluates in ~100 gather-free vector bit-ops per element (vs ~300 for the
-full gate-level tree and vs a 64K-entry LUT gather), which is what the
-CUDA kernel evaluates (kernels/csrc/approx_matmul.cu, generated from this
-module by kernels/codegen.py).
+full gate-level tree and vs a 64K-entry LUT gather). kernels/codegen.py
+prints it as CUDA; the CUDA-core kernel (kernels/csrc/approx_matmul.cu)
+reads it from a 129 x 129 table built from this function
+(kernels/approx_matmul.correction_table).
 
 Validated bit-exact against core.multiplier over the full 2^16 input space
 (tests/test_deficit.py).

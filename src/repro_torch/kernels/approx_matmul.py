@@ -19,8 +19,13 @@ in ``launches`` (an int) and ``variant_launches`` (per body variant); the
 plain versions count nothing.
 
 The kernel library is built with nvcc for sm_90a at first use, into
-``build/kernels/`` at the repository root, from every source in csrc/ and
-the deficit functions that codegen.py writes beside them.
+``build/kernels/`` at the repository root, from every source in csrc/.
+
+The CUDA-core kernel takes a ``plan`` (tile sizes and a split of K, a
+function of the shapes alone) and the correction table of its function
+and design, which ``correction_table`` builds once per device; the
+wrapper allocates the split's partial sums and keeps a zeroed counter
+buffer per device.
 
 The tensor-core kernel takes its B operands K-major;
 ``exact_weight_operand`` and ``rank1_weight_planes`` build them per call
@@ -31,6 +36,7 @@ from __future__ import annotations
 
 import collections
 import ctypes
+import dataclasses
 import functools
 import hashlib
 import os
@@ -42,10 +48,10 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core import compressors as CMP
 from repro_torch.core import deficit as D
 from repro_torch.core import factor as F
 from repro_torch.core.factor import STAGE1_SITES
-from repro_torch.kernels import codegen
 from repro_torch.kernels.ref import int8_matmul
 
 _HERE = Path(__file__).resolve().parent
@@ -54,9 +60,20 @@ BUILD_DIR = _HERE.parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_BODY = {"deficit": 0, "stage1": 1}          # approx_mm_launch
+CUDA_CORE = ("deficit", "stage1")    # the functions of approx_mm_launch
 _TC_BODY = {"exact": 0, "rank1": 1}          # tc_mm_launch
 _OUT_INT32, _OUT_F32, _OUT_F32_RELU = 0, 1, 2
+
+# csrc/approx_matmul.cu: its contraction step, the correction table's
+# layout (rows |x| in [0, 128] at a stride of 130 int16, padded to 16
+# bytes; the kernel refuses another), and the tiles it is compiled for.
+BK = 32
+TABLE_ROWS = 129
+TABLE_STRIDE = 130
+TABLE_BYTES = -(-TABLE_ROWS * TABLE_STRIDE * 2 // 16) * 16
+ROW_TILES = (4, 8, 16, 32, 64)
+COL_TILES = (16, 32, 64)
+SMS = 132                  # streaming multiprocessors of an H100 SXM
 
 
 # ---------------------------------------------------------------------------
@@ -80,10 +97,8 @@ def build() -> Tuple[Path, str]:
     library's path and the compiler's report (registers, shared memory).
     One nvcc per source, all started together, then one link."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    header = codegen.write_header(BUILD_DIR)
     srcs = sorted((_HERE / "csrc").glob("*.cu"))
     digest = hashlib.sha256(b"".join(p.read_bytes() for p in srcs)
-                            + header.read_bytes()
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     lib = BUILD_DIR / f"libapprox_matmul_{digest}.so"
     log = BUILD_DIR / f"libapprox_matmul_{digest}.log"
@@ -91,8 +106,8 @@ def build() -> Tuple[Path, str]:
         tag = f"{digest}.{os.getpid()}"
         objs = [BUILD_DIR / f"{p.stem}.{tag}.o" for p in srcs]
         procs = [subprocess.Popen(
-            [_nvcc(), *NVCC_FLAGS, "-I", str(BUILD_DIR), "-c", "-o",
-             str(o), str(p)], stdout=subprocess.PIPE,
+            [_nvcc(), *NVCC_FLAGS, "-c", "-o", str(o), str(p)],
+            stdout=subprocess.PIPE,
             stderr=subprocess.STDOUT, text=True)
             for p, o in zip(srcs, objs)]
         outs = [pr.communicate()[0] for pr in procs]
@@ -119,12 +134,107 @@ def build() -> Tuple[Path, str]:
 def _lib() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build()[0]))
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.approx_mm_launch.argtypes = [i, i, p, p, i, i, i, p, p, i, p, p]
+    lib.approx_mm_launch.argtypes = [p, p, i, i, i, i, i, i, i, i, i, p, i,
+                                     i, p, p, i, p, p, p, i, p]
     lib.approx_mm_launch.restype = ctypes.c_int
     lib.tc_mm_launch.argtypes = [i, p, p, p, p, i, i, i, i, i, i, p, p, i,
                                  p, p]
     lib.tc_mm_launch.restype = ctypes.c_int
     return lib
+
+
+# ---------------------------------------------------------------------------
+# The CUDA-core kernel's plan and correction tables
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """A launch of the CUDA-core kernel: bm x bn output tiles, K cut into
+    ``splits`` slices of ``k_slice`` columns (the last one ragged), one
+    block per (tile, slice)."""
+    bm: int
+    bn: int
+    k_slice: int
+    row_tiles: int
+    col_tiles: int
+    splits: int
+
+    @property
+    def blocks(self) -> int:
+        return self.row_tiles * self.col_tiles * self.splits
+
+    def block(self, b: int) -> Tuple[int, int, int]:
+        """(first row, first column, first k) of block ``b``, as the kernel
+        reads its block index."""
+        ct, b = b % self.col_tiles, b // self.col_tiles
+        rt, s = b % self.row_tiles, b // self.row_tiles
+        return rt * self.bm, ct * self.bn, s * self.k_slice
+
+
+@functools.lru_cache(maxsize=4096)
+def plan(rows: int, k: int, n: int) -> Plan:
+    """The tiles and split-K of an (rows, K) x (K, N) product. The row tile
+    is the smallest that holds the rows (64 past that). The column tile is
+    the narrowest that holds N (64 past that), halved while the tiles and
+    every possible slice of BK columns together give fewer blocks than the
+    card has SMs. K is then cut into as many slices of whole BK steps as
+    bring the blocks to at least one per SM, where the tiles alone do not."""
+    if rows < 1 or k < 1 or n < 1:
+        raise ValueError(f"no plan for an empty product {(rows, k, n)}")
+    bm = next((t for t in ROW_TILES if t >= rows), ROW_TILES[-1])
+    row_tiles = -(-rows // bm)
+    steps = -(-k // BK)
+    bn = next((t for t in COL_TILES if t >= n), COL_TILES[-1])
+    while bn > COL_TILES[0] and row_tiles * -(-n // bn) * steps < SMS:
+        bn //= 2
+    col_tiles = -(-n // bn)
+    need = -(-SMS // (row_tiles * col_tiles))
+    slice_steps = steps if need <= 1 else max(1, steps // need)
+    k_slice = slice_steps * BK
+    return Plan(bm, bn, k_slice, row_tiles, col_tiles, -(-k // k_slice))
+
+
+def correction_matrix(kernel: str, design: str = "proposed") -> torch.Tensor:
+    """(129, 129) int32 on the CPU: C(|x|, |w|) for magnitudes in [0, 128],
+    the term P(x, w) = x w - sign(x) sign(w) C subtracts: deficit_sum for
+    'deficit', the stage-1 site correction for 'stage1'."""
+    mag = torch.arange(TABLE_ROWS, dtype=torch.int32)
+    a, b = mag[:, None], mag[None, :]
+    if kernel == "deficit":
+        return D.deficit_sum(a, b, design).to(torch.int32)
+    if kernel == "stage1":
+        corr = torch.zeros((TABLE_ROWS, TABLE_ROWS), dtype=torch.int32)
+        for col, ra, rb in STAGE1_SITES:
+            corr += (window_and(a, ra) * window_and(b, rb)) << col
+        return corr
+    raise ValueError(f"unknown kernel {kernel!r}")
+
+
+@functools.lru_cache(maxsize=32)
+def correction_table(kernel: str, design: str, device: str) -> torch.Tensor:
+    """The kernel's table on ``device``: (TABLE_BYTES / 2,) int16, row |x|
+    at |x| * TABLE_STRIDE, zero past column 128."""
+    corr = correction_matrix(kernel, design)
+    if corr.min() < -2 ** 15 or corr.max() >= 2 ** 15:
+        raise ValueError(f"{kernel}/{design}: correction outside int16")
+    flat = torch.zeros(TABLE_BYTES // 2, dtype=torch.int16)
+    flat[:TABLE_ROWS * TABLE_STRIDE].view(
+        TABLE_ROWS, TABLE_STRIDE)[:, :TABLE_ROWS] = corr.to(torch.int16)
+    return flat.to(device)
+
+
+_COUNTERS = {}
+
+
+def _counters(device: torch.device, n: int) -> torch.Tensor:
+    """A zeroed int32 counter per output tile, kept per device: each split
+    launch leaves its counters at 0 again."""
+    key = str(device)
+    c = _COUNTERS.get(key)
+    if c is None or c.numel() < n:
+        c = _COUNTERS[key] = torch.zeros(max(n, 1024), dtype=torch.int32,
+                                         device=device)
+    return c
 
 
 # ---------------------------------------------------------------------------
@@ -193,19 +303,30 @@ def _out_kind(scale, relu):
             else _OUT_F32_RELU if relu else _OUT_F32)
 
 
-def _launch(body: str, design: str, x: torch.Tensor, w: torch.Tensor,
+def _launch(kernel: str, design: str, x: torch.Tensor, w: torch.Tensor,
             out: torch.Tensor, scale: Optional[torch.Tensor] = None,
             bias: Optional[torch.Tensor] = None, relu: bool = False):
     rows, k = x.numel() // x.shape[-1], x.shape[-1]
     n = w.shape[1]
-    design_id = codegen.designs().index(design) if body == "deficit" else 0
+    if rows == 0 or n == 0:
+        return
+    p = plan(rows, k, n)
+    table = correction_table(kernel, design, str(x.device))
+    partial = counters = None
+    if p.splits > 1:
+        partial = torch.empty((p.splits, rows, n), dtype=torch.int32,
+                              device=x.device)
+        counters = _counters(x.device, p.row_tiles * p.col_tiles)
     with torch.cuda.device(x.device):
         err = _lib().approx_mm_launch(
-            _BODY[body], design_id, _ptr(x), _ptr(w), rows, k, n,
-            _ptr(scale), _ptr(bias), _out_kind(scale, relu), _ptr(out),
+            _ptr(x), _ptr(w), rows, k, n, p.bm, p.bn,
+            p.k_slice, p.row_tiles, p.col_tiles, p.splits, _ptr(table),
+            TABLE_STRIDE, TABLE_BYTES, _ptr(scale), _ptr(bias),
+            _out_kind(scale, relu), _ptr(out), _ptr(partial),
+            _ptr(counters), 0 if counters is None else counters.numel(),
             torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"approx_mm_launch({body}) failed: CUDA error "
+        raise RuntimeError(f"approx_mm_launch({kernel}) failed: CUDA error "
                            f"{err}")
 
 
@@ -294,9 +415,9 @@ def _check_epilogue(w, scale, bias):
 
 
 def _check_design(design: str):
-    if design not in codegen.designs():
+    if design not in CMP.DESIGNS:
         raise KeyError(f"unknown design {design!r}; known: "
-                       f"{codegen.designs()}")
+                       f"{tuple(CMP.DESIGNS)}")
 
 
 # ---------------------------------------------------------------------------

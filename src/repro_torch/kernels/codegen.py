@@ -1,9 +1,11 @@
 """Generate straight-line CUDA for ``deficit_sum``, one function per design,
 and for the stage-1 window features of ``core.factor.STAGE1_SITES``.
 
-The deficit kernel (csrc/approx_matmul.cu) evaluates the paper's circuit as
-integer bit operations on CUDA cores. Rather than transcribe the reduction
-tree by hand, this module runs the port's own ``core.deficit.deficit_sum``
+The paper's circuit as integer bit operations, as the TPU kernel evaluates
+it; the CUDA-core kernel (csrc/approx_matmul.cu) reads the same function
+from a table (``kernels.approx_matmul.correction_table``), and this module
+is the circuit's record and check. Rather than transcribe the reduction
+tree by hand, it runs the port's own ``core.deficit.deficit_sum``
 on a symbolic integer class that records every ``>>``, ``&``, ``|``, ``^``,
 ``+``, ``-``, ``*`` and comparison into a program, then prints the program
 as a ``__device__`` function. Identical sub-expressions are shared, nodes
@@ -167,7 +169,7 @@ def emit_function(name: str, prog: Program) -> str:
 
 
 def designs() -> Tuple[str, ...]:
-    """Design order; a design's index here is the kernel's design id."""
+    """Design order; a design's index is its id in the generated header."""
     return tuple(C.DESIGNS)
 
 

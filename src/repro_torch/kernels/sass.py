@@ -7,12 +7,14 @@ counts two-input operations, but nvcc merges them (three-input ``LOP3``
 and ``IADD3``, ``LEA``, ``IMAD`` with an addend) and may add others, so
 the count is taken from what the compiler emitted.
 
-``pair_ops`` takes the kernel's innermost loop that reads shared memory
+``pair_ops`` takes the kernel's loop that reads shared memory most often
 (one contraction step of the register tile, or one rank-1 factor), tags
 the value of every shared-memory load in it, carries the tags through
 registers and predicates, and counts the arithmetic instructions whose
 inputs carry the tags of two or more loads: those that combine an x
-operand with a w operand. A load issued for the next trip is followed by
+operand with a w operand. A shared load whose address already combines
+two loads is a table lookup: it is counted apart, and its value keeps the
+tags of its address. A load issued for the next trip is followed by
 reading the loop twice and counting the second trip; between the two, the
 tags of values derived from one load are kept and those of loop-carried
 sums (the accumulators) dropped.
@@ -140,8 +142,9 @@ def functions(sass: str) -> Dict[str, List[Instr]]:
 
 
 def inner_loop(instrs: List[Instr]) -> List[Instr]:
-    """The shortest loop (the span of a backward branch) that reads shared
-    memory and holds no barrier."""
+    """The loop (the span of a backward branch) without a barrier that
+    reads shared memory most often, the shortest of those: the contraction
+    step, not an epilogue's loop over a few staged sums."""
     loops = []
     for br in instrs:
         if br.target is not None and br.target <= br.addr:
@@ -152,23 +155,33 @@ def inner_loop(instrs: List[Instr]) -> List[Instr]:
                 loops.append(body)
     if not loops:
         raise ValueError("no loop over shared-memory loads found")
-    return min(loops, key=len)
+    return min(loops, key=lambda body: (
+        -sum(x.opcode.startswith("LDS") for x in body), len(body)))
 
 
-def pair_ops(loop: List[Instr]) -> Tuple[int, int]:
-    """(arithmetic instructions that combine two loaded values, shared
-    loads) in one trip of ``loop``."""
+def _width(opcode: str) -> int:
+    """32-bit values a shared load brings: 4 for LDS.128, 2 for LDS.64."""
+    return 4 if ".128" in opcode else 2 if ".64" in opcode else 1
+
+
+def pair_ops(loop: List[Instr]) -> Tuple[int, int, int]:
+    """(arithmetic instructions that combine two loaded values, 32-bit
+    operand values loaded from shared memory, table lookups) in one trip
+    of ``loop``."""
     tags: Dict[str, FrozenSet[int]] = {}
-    count = loads = 0
+    count = loads = lookups = 0
     for trip in (0, 1):
         if trip:
             tags = {r: t for r, t in tags.items() if len(t) == 1}
         for i, ins in enumerate(loop):
             srcs = frozenset().union(*(tags.get(r, frozenset())
                                        for r in ins.srcs))
-            if ins.opcode.startswith("LDS"):
-                tag: FrozenSet[int] = frozenset((i,))
-                loads += trip
+            if ins.opcode.startswith("LDS") and len(srcs) >= 2:
+                tag: FrozenSet[int] = srcs
+                lookups += trip
+            elif ins.opcode.startswith("LDS"):
+                tag = frozenset((i,))
+                loads += trip * _width(ins.opcode)
             else:
                 tag = srcs
                 count += (trip and len(srcs) >= 2
@@ -179,18 +192,20 @@ def pair_ops(loop: List[Instr]) -> Tuple[int, int]:
                 # a predicated write may keep the old value
                 tags[r] = tag | tags.get(r, frozenset()) if ins.guarded \
                     else tag
-    return count, loads
+    return count, loads, lookups
 
 
 def ops_per_pair(loop: List[Instr], tile: Tuple[int, int],
-                 loads_per_operand: int = 1) -> float:
-    """Instructions per (x, w) pair and loop step: a step of a TM x TN
-    register tile loads TM + TN operands ``loads_per_operand`` times each
-    and covers TM * TN pairs; an unrolled loop covers several steps."""
-    count, loads = pair_ops(loop)
+                 loads_per_operand: int = 1) -> Tuple[float, float]:
+    """(arithmetic instructions, table lookups) per (x, w) pair: a step of
+    a TM x TN register tile loads ``loads_per_operand`` values of each of
+    its TM + TN operands and covers TM * TN pairs; an unrolled loop covers
+    several steps."""
+    count, loads, lookups = pair_ops(loop)
     tm, tn = tile
     per_step = (tm + tn) * loads_per_operand
     if loads == 0 or loads % per_step:
-        raise ValueError(f"{loads} shared loads per trip is not a whole "
+        raise ValueError(f"{loads} shared values per trip is not a whole "
                          f"number of {tm}x{tn} tile steps")
-    return count / (loads // per_step * tm * tn)
+    pairs = loads // per_step * tm * tn
+    return count / pairs, lookups / pairs

@@ -184,16 +184,20 @@ def test_launch_counters_stay_zero_on_cpu():
 
 
 def test_build_writes_generated_header_and_needs_nvcc(tmp_path, monkeypatch):
-    """The build step generates the deficit functions beside the library;
-    without a CUDA compiler it raises instead of falling back."""
+    """Without a CUDA compiler the build raises instead of falling back.
+    It compiles the sources in csrc/ alone: none includes the generated
+    deficit header (codegen.emit_header, the circuit's record), since the
+    CUDA-core kernel reads each design's deficits from a table, and the
+    build writes none."""
     monkeypatch.setattr(K, "BUILD_DIR", tmp_path)
     monkeypatch.setenv("PATH", str(tmp_path))
     monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no_cuda"))
     with pytest.raises(RuntimeError, match="nvcc not found"):
         K.build()
-    header = (tmp_path / "deficit_gen.cuh").read_text()
-    assert header == codegen.emit_header()
-    assert '#include "deficit_gen.cuh"' in K.SOURCE.read_text()
+    assert not (tmp_path / "deficit_gen.cuh").exists()
+    for src in K.SOURCE.parent.glob("*.cu"):
+        assert "deficit_gen.cuh" not in src.read_text()
+    assert "deficit_proposed" in codegen.emit_header()
 
 
 def test_port_oracles_match_reference_oracles():
@@ -262,9 +266,9 @@ def test_sass_counts_instructions_that_combine_both_operands():
     loop = SASS.inner_loop(fns["_Z6kernelv"])
     assert (loop[0].addr, loop[-1].addr) == (0x10, 0xa0)
     assert loop[-1].target == 0x10
-    assert SASS.pair_ops(loop) == (4, 2)
+    assert SASS.pair_ops(loop) == (4, 2, 0)
     # one 1x1 tile step per trip: 4 per pair; a 2x2 tile would load 4
-    assert SASS.ops_per_pair(loop, (1, 1)) == 4.0
+    assert SASS.ops_per_pair(loop, (1, 1)) == (4.0, 0.0)
     with pytest.raises(ValueError, match="tile steps"):
         SASS.ops_per_pair(loop, (2, 2))
 
@@ -280,4 +284,41 @@ def test_sass_follows_loads_issued_for_the_next_trip():
         (0x50, "IABS R6, R4"),
         (0x60, "BRA 0x10")])
     fns = SASS.functions("\tFunction : f\n" + listing)
-    assert SASS.pair_ops(SASS.inner_loop(fns["f"])) == (2, 2)
+    assert SASS.pair_ops(SASS.inner_loop(fns["f"])) == (2, 2, 0)
+
+
+def test_sass_inner_loop_is_the_loop_with_most_shared_loads():
+    """An epilogue's short loop over one staged sum is not the contraction
+    step."""
+    listing = "\n".join(f"        /*{a:04x}*/  {t} ;" for a, t in [
+        (0x10, "LDS R4, [R2]"),
+        (0x20, "LDS R5, [R3]"),
+        (0x30, "IMAD R10, R4, R5, R10"),
+        (0x40, "@P0 BRA 0x10"),
+        (0x50, "LDS R6, [R7]"),
+        (0x60, "IADD3 R11, R11, R6, RZ"),
+        (0x70, "@P1 BRA 0x50")])
+    loop = SASS.inner_loop(SASS.functions("\tFunction : f\n" + listing)["f"])
+    assert (loop[0].addr, loop[-1].addr) == (0x10, 0x40)
+
+
+def test_sass_counts_table_lookups_apart():
+    """A shared load whose address combines an x and a w value is a table
+    lookup, counted apart from the operand loads; what uses its value
+    combines both operands. A vector load counts each 32-bit value."""
+    listing = "\n".join(f"        /*{a:04x}*/  {t} ;" for a, t in [
+        (0x10, "LDS.64 R4, [R2]"),
+        (0x20, "LDS.64 R8, [R3+0x100]"),
+        (0x30, "IMAD R20, R4, R8, R20"),
+        (0x40, "IADD3 R11, R5, R9, RZ"),
+        (0x50, "LDS.S16 R12, [R11+0x40]"),
+        (0x60, "IADD3 R20, R20, -R12, RZ"),
+        (0x70, "VIADD R2, R2, 0x8"),
+        (0x80, "ISETP.NE.AND P0, PT, R2, 0x80, PT"),
+        (0x90, "@P0 BRA 0x10")])
+    loop = SASS.inner_loop(SASS.functions("\tFunction : f\n" + listing)["f"])
+    assert SASS.pair_ops(loop) == (3, 4, 1)
+    # a 1x1 tile step loading two values per operand
+    assert SASS.ops_per_pair(loop, (1, 1), 2) == (3.0, 1.0)
+    with pytest.raises(ValueError, match="tile steps"):
+        SASS.ops_per_pair(loop, (2, 2), 2)
