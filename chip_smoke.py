@@ -23,8 +23,12 @@ Phases, each printing its seconds:
             the CUDA-core kernel's row tiles, K split into slices with a
             ragged last one, ragged N), an int32 sum past 2^31 through a
             67-slice split of K, and the LeNet-5, Keras CNN and FFDNet
-            layer shapes (the suites' FFDNet too) and smollm-135m's
-            decode (4 slots of one row) and prefill shapes; hold every backend's
+            layer shapes (the suites' FFDNet too), smollm-135m's
+            decode (4 slots of one row), verify (4 slots of a K = 4
+            window) and prefill shapes, the lm suite's eval shapes
+            (32 x 64 rows, d_model 128) and the serve suite's decode,
+            verify and prefill shapes, printing the CUDA-core plan
+            (tile, K slices) of each; hold every backend's
             int32 output to the JAX
             package's (src/repro_torch/testdata/reference.npz); time each
             entry (fused_matmul[exact] in turns with torch._int_mm), its
@@ -46,9 +50,14 @@ Phases, each printing its seconds:
             backends, fused and unfused, and their oracles: outputs equal
             bit for bit; each forward timed FORWARD_REPS times, and one
             traced with torch.profiler for its device time;
-6. suites   the paper's four result suites through repro_torch.eval's
+6. suites   the six result suites through repro_torch.eval's
             runners at their paper-scale budgets: metrics and hw equal the
-            committed experiments/eval tables; mnist (LeNet-5, 300 QAT
+            committed experiments/eval tables; lm (a 4-layer, 128-wide
+            smollm QAT-trained 300 steps, 32 x 64 eval tokens) and serve
+            (its random-init weights on the 8-request workload, each point
+            served sequentially, alone and speculatively): every *_pallas
+            row equals its oracle's, every serve row has solo == batched
+            and spec == sequential; mnist (LeNet-5, 300 QAT
             steps on 5,000 digits, 500 test digits) and denoise (FFDNet
             depth 6, width 32, 150 QAT steps on 64x64 textures, 16 images
             at sigma 25 and 50) train on the card and sweep bf16, all 15
@@ -84,13 +93,31 @@ Phases, each printing its seconds:
             busy ms, port-kernel ms and idle share; the rank1 operand
             build at the head. Then ``python -m
             repro_torch.serve --backend approx_deficit_pallas`` runs once;
-8. launch counts, set to 0 before each of phases 4, 5 and 6 (the suite
-   runners' calls) and 7 (the served runs) and read after it: LeNet-5 and
-   FFDNet each launch every entry but fused_matmul[exact], the suites
-   every fused entry, the serve path K2[deficit], K2[stage1], K4 and
-   (unfused) K1[stage1];
-9. one JSON line each ``{"suites": {...}}``, ``{"serve": {...}}`` and
-   ``{"kernels": [...]}``;
+8. spec     the same workload served again with speculative decoding
+            (SpecConfig(k=4, draft_backend="approx_stage1_pallas"), which
+            is bitwise the approx_stage1 draft the serve suite names)
+            under the three CUDA backends and bf16: the tokens equal the
+            backend's sequential serving's; on a probe of 4 slots, verify
+            rows j = 0..3 equal the four sequential decode steps' rows and
+            cache writes bit for bit for the CUDA backends (bf16: within
+            BF16_VERIFY_RTOL of their range), and the same readings for
+            each of VERIFY_FORMS are printed; accepted drafts per pass and
+            their histogram, ms per decoded token (the draft's admission
+            prefills in and out) against the sequential serving's, and for
+            a fixed verify pass
+            and draft step their ms, busy, kernel and idle share and
+            kernel launches (per pass: verify + 4 draft steps);
+9. lm_train five make_train_step(qat=True) steps of full-width
+            smollm-135m (bf16 parameters from seed 0, remat) on
+            token_stream, batch 8 x 64: finite, falling loss; ms per step
+            from CUDA events after the first; one step profiled;
+10. launch counts, set to 0 before each of phases 4, 5 and 6 (the suite
+   runners' calls), 7 (the served runs) and 8 (the speculative runs) and
+   read after it: LeNet-5 and FFDNet each launch every entry but
+   fused_matmul[exact], the suites and spec every fused entry, the serve
+   path K2[deficit], K2[stage1], K4 and (unfused) K1[stage1];
+11. one JSON line each ``{"suites": {...}}``, ``{"serve": {...}}``,
+   ``{"spec": {...}}``, ``{"lm_train": {...}}`` and ``{"kernels": [...]}``;
 then the ``nvidia-smi`` name and power limit, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure raises: the script exits
 non-zero and prints no result. It imports nothing of JAX.
@@ -205,6 +232,25 @@ SERVE_LAYERS = {  # smollm-135m: a decode step of 4 slots, one prefill
     "smollm.decode.down": (4, 1, 1536, 576),
     "smollm.decode.head": (4, 1, 576, 49152),
     "smollm.prefill.up": (1, 32, 576, 1536)}
+VERIFY_LAYERS = {  # smollm-135m: a K = 4 verify window of 4 slots
+    "smollm.verify.q": (4, 4, 576, 576), "smollm.verify.kv": (4, 4, 576, 192),
+    "smollm.verify.up": (4, 4, 576, 1536),
+    "smollm.verify.down": (4, 4, 1536, 576),
+    "smollm.verify.head": (4, 4, 576, 49152)}
+LM_SUITE_LAYERS = {  # the lm suite's full eval: 32 x 64 tokens, d_model 128
+    "lm.q": (32, 64, 128, 128), "lm.kv": (32, 64, 128, 32),
+    "lm.up": (32, 64, 128, 256), "lm.down": (32, 64, 256, 128),
+    "lm.head": (32, 64, 128, 512)}
+SERVE_SUITE_LAYERS = {  # the serve suite's full arch (4 slots, d_model 128)
+    "ss.decode.q": (4, 1, 128, 128), "ss.decode.kv": (4, 1, 128, 32),
+    "ss.decode.up": (4, 1, 128, 256), "ss.decode.down": (4, 1, 256, 128),
+    "ss.decode.head": (4, 1, 128, 512),
+    "ss.verify.q": (4, 4, 128, 128), "ss.verify.kv": (4, 4, 128, 32),
+    "ss.verify.up": (4, 4, 128, 256), "ss.verify.down": (4, 4, 256, 128),
+    "ss.verify.head": (4, 4, 128, 512),
+    "ss.prefill.up": (1, 32, 128, 256)}
+TIMED_LAYERS = {**LAYERS, **SERVE_LAYERS, **VERIFY_LAYERS, **LM_SUITE_LAYERS,
+                **SERVE_SUITE_LAYERS}
 TIMED_LAYER = "ffdnet.mid"
 FORWARD_REPS = 10
 
@@ -292,16 +338,22 @@ def main() -> int:
         suites, paths["suites"] = suites_phase(torch, detail, "cuda",
                                                smoke=False)
     with Phase("serve"):
-        serve, paths["serve"] = serve_phase(torch, detail, "cuda", full=True,
-                                            ops=ops)
+        serve, paths["serve"], state = serve_phase(torch, detail, "cuda",
+                                                   full=True, ops=ops)
+    with Phase("spec"):
+        spec, paths["spec"] = spec_phase(torch, detail, "cuda", state)
+    del state
+    torch.cuda.empty_cache()
+    with Phase("lm_train"):
+        lm_train = lm_train_phase(torch, detail, "cuda", full=True)
 
     with Phase("launches"):
         for name, var, _ in ROWS:
             print(f"launches {name}[{var}]: " + ", ".join(
                 f"{path} {c[(name, var)]}" for path, c in paths.items()))
         for path, counts in paths.items():
-            need = {"suites": SUITE_VARIANTS, "serve": SERVE_VARIANTS}.get(
-                path, PATH_VARIANTS)
+            need = {"suites": SUITE_VARIANTS, "serve": SERVE_VARIANTS,
+                    "spec": SUITE_VARIANTS}.get(path, PATH_VARIANTS)
             for name, var in need:
                 check(counts[(name, var)] > 0,
                       f"{name}[{var}] was not launched on the {path} path")
@@ -320,6 +372,8 @@ def main() -> int:
     DETAIL.write_text(json.dumps(detail, indent=1))
     print(json.dumps({"suites": suites}, separators=(",", ":")))
     print(json.dumps({"serve": serve}, separators=(",", ":")))
+    print(json.dumps({"spec": spec}, separators=(",", ":")))
+    print(json.dumps({"lm_train": lm_train}, separators=(",", ":")))
     print(json.dumps({"kernels": rows}))
     print(smi_line())
     print(json.dumps({"ok": True, "device": {
@@ -554,7 +608,8 @@ def kernels_phase(torch, K, detail, ops):
               "ragged(3,1,1)": (1, 3, 1, 1),
               "batched(4,333,150,70)": (4, 333, 150, 70),
               **TC_SEAMS, **CUDA_CORE_SEAMS, **LAYERS, **SUITE_LAYERS,
-              **SERVE_LAYERS}
+              **SERVE_LAYERS, **VERIFY_LAYERS, **LM_SUITE_LAYERS,
+              **SERVE_SUITE_LAYERS}
     errs = {r[:2]: 0.0 for r in ROWS}
     per_layer, timed = [], []
     for label, (bb, m, k, n) in shapes.items():
@@ -572,7 +627,7 @@ def kernels_phase(torch, K, detail, ops):
                     check(got.dtype == want.dtype and torch.equal(got, want),
                           f"{name}[{var}] {design} relu={relu} differs from "
                           f"its plain version at {label}: max |diff| {err}")
-            if label in LAYERS or label in SERVE_LAYERS:
+            if label in TIMED_LAYERS:
                 kern = functools.partial(_call, K, name, var, x, w, scale,
                                          bias, False, False)
                 pms = _ms(torch, lambda: _call(K, name, var, x, w, scale,
@@ -651,6 +706,10 @@ def kernels_phase(torch, K, detail, ops):
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
             "shape": t["shape"], "pairs_2e16_ok": pairs_ok[(name, var)],
             "device_ms": t["device_ms"],
+            "verify_device_ms": {
+                r["layer"]: r["device_ms"] for r in per_layer
+                if r["layer"] in VERIFY_LAYERS and r["entry"] == name
+                and r["variant"] == var},
             **({"operands_ms": t["operands_ms"]}
                if var in TC_VARIANTS else {}),
             "_entry": name, "_variant": var})
@@ -892,9 +951,7 @@ def per_forward_launches(torch, K) -> dict:
                 K.reset_launch_counts()
                 with torch.inference_mode():
                     run()
-                n = sum(getattr(K, name).launches for name in
-                        ("approx_matmul", "fused_matmul", "rank1_matmul",
-                         "rank1_fused_matmul"))
+                n = _launches(K)
                 out[f"{model}/{be}/{'fused' if fuse else 'unfused'}"] = n
     return out
 
@@ -955,7 +1012,7 @@ def ffdnet_phase(torch, detail):
 # Phase 6: the paper's result suites, with QAT training on the card
 # ---------------------------------------------------------------------------
 
-SUITE_RUNS = ("metrics", "hw", "mnist", "denoise")
+SUITE_RUNS = ("metrics", "hw", "mnist", "denoise", "lm", "serve")
 TASK_KEYS = {"mnist": ("acc",), "denoise": ("psnr", "ssim", "noisy_psnr")}
 MSR_CORES = ("msr4", "drum6", "posneg")
 TIMED_STEPS = 40        # train_step calls per timing turn
@@ -1058,6 +1115,50 @@ def check_sweep_rows(name: str, rows: list, QM):
     if name == "mnist":
         check(by[("bf16", None)]["acc"] >= 90.0,
               f"bf16 LeNet-5 accuracy {by[('bf16', None)]['acc']} < 90 %")
+
+
+# the columns of the LM suites that each *_pallas row shares with its
+# oracle's row
+LM_SUITE_KEYS = {"lm": ("ppl", "d_ppl", "logit_nmed"),
+                 "serve": ("requests", "new_tokens", "hit_rate",
+                           "solo_match", "match_bf16", "prefix_bf16",
+                           "spec_match", "spec_accept")}
+
+
+def check_lm_suite_rows(name: str, art: dict, QM):
+    """The lm and serve artifacts: 18 finite rows; every *_pallas row equal
+    to its oracle's in LM_SUITE_KEYS; serve: every row's solo and spec
+    checks true; lm: the QAT loss finite and below a uniform guess's.
+    The lm rows are the port's own training (not gated against
+    experiments/eval/lm.json: the two stacks' init RNGs differ)."""
+    (rows,) = art["tables"].values()
+    keys = LM_SUITE_KEYS[name]
+    check(len(rows) == 18, f"{name}: {len(rows)} rows")
+    by = {r["backend"]: r for r in rows}
+    for r in rows:
+        check(all(np.isfinite(float(r[k])) for k in keys),
+              f"{name}: bad row {r}")
+        if name == "serve":
+            check(r["solo_match"] and r["spec_match"],
+                  f"serve: {r['backend']} solo/spec check failed: {r}")
+    for be in QM.list_backends():
+        if be.endswith("_pallas"):
+            oracle = QM.get_backend(be).oracle
+            got = [by[be][k] for k in keys]
+            want = [by[oracle][k] for k in keys]
+            check(got == want, f"{name}: {be} row {got} != {oracle} row "
+                               f"{want}")
+    if name == "lm":
+        loss = art["config"]["train_loss"]
+        check(np.isfinite(loss) and loss < np.log(art["config"]["vocab"]),
+              f"lm: QAT training loss {loss}")
+        print(f"  lm: QAT train loss {loss}, bf16 ppl {by['bf16']['ppl']}, "
+              f"design13 d_ppl {by['approx_lut[design13]']['d_ppl']}")
+    else:
+        print("  serve: every row solo == batched and spec == sequential; "
+              "accepted drafts/pass " + ", ".join(
+                  f"{r['backend']} {r['spec_accept']}" for r in rows[:10]))
+    print(f"  {name}: every *_pallas row equals its oracle's")
 
 
 def check_suite_outputs(torch, name: str, rec: SuiteRecorder, QM) -> int:
@@ -1271,6 +1372,8 @@ def suites_phase(torch, detail, dev: str, smoke: bool) -> dict:
                   f"{last:.4g}, {entry['ms_per_step']:.3f} ms per step; "
                   f"sweep {entry['eval_s']:.1f} s, slowest "
                   + ", ".join(f"{k} {v:.2f} s" for k, v in slowest))
+        elif name in LM_SUITE_KEYS:
+            check_lm_suite_rows(name, art, QM)
         else:
             committed = json.loads(
                 (COMMITTED_EVAL / f"{name}.json").read_text())
@@ -1377,8 +1480,10 @@ def serve_phase(torch, detail, dev: str, full: bool, ops=None) -> tuple:
     the module docstring, phase 7). ``full`` is the card's run at
     smollm-135m's published width; without it a 2-layer, 64-wide smollm
     on the serve suite's smoke workload (the CPU rehearsal). Returns the
-    serve line and the kernel launches of the served runs (counts set to 0
-    before each run and read after it)."""
+    serve line, the kernel launches of the served runs (counts set to 0
+    before each run and read after it), and what the spec phase starts
+    from: the config, params, workload, and each backend's tokens and ms
+    per decoded token."""
     import dataclasses
     from repro_torch.configs import registry
     from repro_torch.core import factor as F
@@ -1448,6 +1553,8 @@ def serve_phase(torch, detail, dev: str, full: bool, ops=None) -> tuple:
                   f"{be}: the workload served again gave other tokens")
             reps.append({
                 "decode_step_ms_median": statistics.median(rec.step_ms),
+                "ms_per_token": sum(rec.step_ms) / (
+                    stats["new_tokens"] - len(reqs)),
                 "decode_steps": stats["decode_steps"],
                 "ttft_ms_mean": stats["ttft_ms_mean"],
                 "ttft_ms_max": stats["ttft_ms_max"],
@@ -1519,6 +1626,7 @@ def serve_phase(torch, detail, dev: str, full: bool, ops=None) -> tuple:
             row["solo_match"] = True
         del eng
 
+    tokens = {be: runs[be][0] for be in SPEC_BACKENDS}
     for be in CUDA_BACKENDS:
         oracle = QM.get_backend(be).oracle
         (toks, rows), (otoks, orows) = runs[be], runs[oracle]
@@ -1571,7 +1679,380 @@ def serve_phase(torch, detail, dev: str, full: bool, ops=None) -> tuple:
         print(f"  python -m repro_torch.serve --backend "
               f"approx_deficit_pallas ({out['cli_s']:.1f} s): {last[0]}; "
               f"{last[-1]}")
+    state = {"cfg": cfg0, "params": params, "reqs": reqs, "slots": slots,
+             "max_len": max_len, "tokens": tokens,
+             "ms_per_token": {be: statistics.median(
+                 r["ms_per_token"] for r in row["reps"])
+                 for be, row in out.items() if be in SPEC_BACKENDS}}
+    return out, launches, state
+
+
+# ---------------------------------------------------------------------------
+# Phase 8: speculative serving of smollm-135m at full width
+# ---------------------------------------------------------------------------
+
+SPEC_BACKENDS = CUDA_BACKENDS + ("bf16",)
+SPEC_K = 4
+SPEC_DRAFT = "approx_stage1_pallas"    # bitwise the suite's approx_stage1
+# the backends whose verify rows are claimed bitwise equal to sequential
+# decode's; bf16's float projections are not row-local (PERF.md)
+SPEC_BITWISE = CUDA_BACKENDS
+PROBE_PROMPT = 20        # tokens of each slot's prompt in the verify probe
+PROBE_REPS = 10          # timed calls of the fixed verify pass, draft step
+# the verify probe's forms of a window pass (see _verify_forms); the
+# engine's verify_step is "norm_columns"
+VERIFY_FORMS = ("width_k", "norm_columns", "norm_attn_columns")
+# bf16's verify rows and cache writes against sequential decode, over their
+# range: tests/test_torch_spec.py's BF16_ROW_RTOL
+BF16_VERIFY_RTOL = 1e-5
+
+
+class SpecRecorder:
+    """For the length of a ``with``: the host milliseconds of each pass of
+    ``engine`` (speculative passes and plain fallback steps) and of each
+    draft admission prefill, synchronized before and after, and the tokens
+    each pass committed."""
+
+    def __init__(self, torch, engine, dev: str):
+        self.torch, self.engine, self.dev = torch, engine, dev
+        self.pass_ms, self.pass_tokens, self.step_ms = [], [], []
+        self.admit_ms = []
+
+    def __enter__(self):
+        eng = self.engine
+        self.spec_step, self.decode = eng._spec_step, eng._decode
+        self.admit = eng.speculator.admit
+        metrics = eng.speculator.metrics
+
+        def admit(*args):
+            _sync(self.torch, self.dev)
+            t0 = time.perf_counter()
+            self.admit(*args)
+            _sync(self.torch, self.dev)
+            self.admit_ms.append((time.perf_counter() - t0) * 1e3)
+
+        def spec_step(active):
+            before = metrics.committed
+            _sync(self.torch, self.dev)
+            t0 = time.perf_counter()
+            self.spec_step(active)
+            _sync(self.torch, self.dev)
+            self.pass_ms.append((time.perf_counter() - t0) * 1e3)
+            self.pass_tokens.append(metrics.committed - before)
+
+        def decode(*args):
+            _sync(self.torch, self.dev)
+            t0 = time.perf_counter()
+            out = self.decode(*args)
+            _sync(self.torch, self.dev)
+            self.step_ms.append((time.perf_counter() - t0) * 1e3)
+            return out
+
+        eng._spec_step, eng._decode = spec_step, decode
+        eng.speculator.admit = admit
+        return self
+
+    def __exit__(self, *exc):
+        self.engine._spec_step = self.spec_step
+        self.engine._decode = self.decode
+        self.engine.speculator.admit = self.admit
+        return False
+
+
+def _launches(K) -> int:
+    return sum(getattr(K, name).launches for name in
+               ("approx_matmul", "fused_matmul", "rank1_matmul",
+                "rank1_fused_matmul"))
+
+
+def _verify_forms(torch, TLM, params, win, pos, cfg, cache) -> dict:
+    """One verify pass over ``win`` from copies of ``cache``, in each of
+    VERIFY_FORMS -> {form: (logits, cache)}. ``width_k`` is decode_step at
+    width K (nothing per column); ``norm_columns`` is verify_step as
+    shipped (the RMS norms per column); ``norm_attn_columns`` is verify_step
+    with the attention run once per column too (each an Sq = 1 query at its
+    own position)."""
+    from repro_torch.nn import attention as A
+    sdpa = A._sdpa
+
+    def columns(q, k, v, q_pos, k_pos, window, p_bf16=False):
+        return torch.cat([sdpa(q[:, j:j + 1], k, v, q_pos[:, j:j + 1], k_pos,
+                               window, p_bf16=p_bf16)
+                          for j in range(q.shape[1])], dim=1)
+
+    out = {}
+    for form in VERIFY_FORMS:
+        c = TLM.map_leaves(lambda t: t.clone(), cache)
+        if form == "width_k":
+            out[form] = TLM.decode_step(params, win, pos, cfg, c)
+            continue
+        A._sdpa = columns if form == "norm_attn_columns" else sdpa
+        try:
+            out[form] = TLM.verify_step(params, win, pos, cfg, c)
+        finally:
+            A._sdpa = sdpa
+    return out
+
+
+def _over_range(a, b) -> float:
+    return float((a - b).abs().max() / max(float(b.max() - b.min()), 1e-30))
+
+
+def verify_probe(torch, TLM, params, cfg, draft_cfg, dev: str, gen) -> dict:
+    """One verify pass against the K sequential decode steps it stands for,
+    on 4 slots of PROBE_PROMPT-token prompts, in each of VERIFY_FORMS: the
+    logits rows (equal bit for bit, and their largest difference over the
+    row's range) and the cache writes (likewise, over each leaf's range).
+    The shipped form's readings are also the top-level keys. Then the fixed
+    verify pass and one draft step, each timed over PROBE_REPS calls and
+    profiled once, and the kernel launches of each."""
+    from repro_torch.kernels import approx_matmul as K
+    slots = 4
+    prompt = torch.randint(0, cfg.vocab, (slots, PROBE_PROMPT),
+                           generator=gen).to(dev)
+    pos = torch.full((slots,), PROBE_PROMPT, device=dev)
+    with torch.no_grad():
+        cache = TLM.init_cache(cfg, slots, 112, torch.float32, dev)
+        logits, cache = TLM.prefill(params, prompt, cfg, cache)
+        vcache = TLM.map_leaves(lambda t: t.clone(), cache)
+        toks, seq = [logits[:, -1].argmax(-1)], []
+        for j in range(SPEC_K):
+            lg, cache = TLM.decode_step(params, toks[-1][:, None], pos + j,
+                                        cfg, cache)
+            seq.append(lg[:, 0])
+            toks.append(lg[:, 0].argmax(-1))
+        win = torch.stack(toks[:SPEC_K], 1)
+        forms = _verify_forms(torch, TLM, params, win, pos, cfg, vcache)
+        dcache = TLM.init_cache(draft_cfg, slots, 112, torch.float32, dev)
+        TLM.prefill(params, prompt, draft_cfg, dcache)
+    want = []
+    TLM.map_leaves(want.append, cache)
+    out = {"forms": {}}
+    for form, (vlg, vc) in forms.items():
+        got = []
+        TLM.map_leaves(got.append, vc)
+        out["forms"][form] = {
+            "rows_bitwise": [bool(torch.equal(vlg[:, j], seq[j]))
+                             for j in range(SPEC_K)],
+            "row_max_diff_over_range": max(_over_range(vlg[:, j], seq[j])
+                                           for j in range(SPEC_K)),
+            "cache_bitwise": all(torch.equal(a, b)
+                                 for a, b in zip(got, want)),
+            "cache_max_diff_over_range": max(_over_range(a, b)
+                                             for a, b in zip(got, want))}
+    out.update(out["forms"]["norm_columns"])
+
+    def verify():
+        with torch.no_grad():
+            TLM.verify_step(params, win, pos, cfg, vcache)
+
+    def draft():
+        with torch.no_grad():
+            TLM.decode_step(params, win[:, :1], pos, draft_cfg, dcache)
+
+    for name, fn in (("verify", verify), ("draft_step", draft)):
+        fn()
+        ms = _forward_ms(torch, fn, PROBE_REPS) if dev == "cuda" else []
+        row = {"launches": 0}
+        if dev == "cuda":
+            med = statistics.median(ms)
+            prof = _profile_ms(torch, fn)
+            row.update({"ms_median": med, **prof,
+                        "kernels_share": prof["kernels_ms"] / med,
+                        "idle_share": 1 - prof["device_busy_ms"] / med})
+            K.reset_launch_counts()
+            fn()
+            row["launches"] = _launches(K)
+        out[name] = row
+    out["launches_per_pass"] = (out["verify"]["launches"]
+                                + SPEC_K * out["draft_step"]["launches"])
+    return out
+
+
+def spec_phase(torch, detail, dev: str, state: dict) -> tuple:
+    """Serve the serve phase's workload again with speculative decoding
+    (SpecConfig(k=4, draft_backend=SPEC_DRAFT)) under SPEC_BACKENDS; the
+    tokens must be those of the backend's sequential serving, verify rows
+    those of sequential decode (bit for bit for SPEC_BITWISE). Returns the
+    spec line and the kernel launches of the speculative servings (counts
+    set to 0 before each and read after it)."""
+    import dataclasses
+    from repro_torch.kernels import approx_matmul as K
+    from repro_torch.models import transformer_lm as TLM
+    from repro_torch.quant.quantize import for_lm
+    from repro_torch.serve import engine as PE
+    from repro_torch.serve.speculative import SpecConfig
+
+    cfg0, params, reqs = state["cfg"], state["params"], state["reqs"]
+    spec = SpecConfig(k=SPEC_K, draft_backend=SPEC_DRAFT)
+    draft_cfg = spec.draft_arch(cfg0)
+    gen = torch.Generator().manual_seed(1)
+    launches = {key: 0 for key in launch_counts(K)}
+    out = {}
+    for be in SPEC_BACKENDS:
+        cfg = dataclasses.replace(cfg0, quant=for_lm(be))
+        eng = PE.Engine(cfg, params, slots=state["slots"],
+                        max_len=state["max_len"], spec=spec, device=dev)
+        for rid, prompt, max_new in reqs:
+            eng.submit(PE.ServeRequest(rid=rid, prompt=prompt,
+                                       max_new=max_new))
+        K.reset_launch_counts()
+        with SpecRecorder(torch, eng, dev) as rec:
+            stats = eng.run()
+        for key, n in launch_counts(K).items():
+            launches[key] += n
+        toks = {r.rid: list(r.output) for r in eng.completed}
+        check(toks == state["tokens"][be],
+              f"{be}: speculative tokens differ from its sequential "
+              "serving's")
+        hist = stats["spec_accept_hist"]
+        check(stats["spec_passes"] > 0, f"{be}: no speculative pass")
+        check(stats["spec_committed"] == sum((a + 1) * n for a, n in
+                                             enumerate(hist)),
+              f"{be}: committed tokens != accepted + outcomes")
+        probe = verify_probe(torch, TLM, params, cfg, draft_cfg, dev, gen)
+        if be in SPEC_BITWISE:
+            check(all(probe["rows_bitwise"]) and probe["cache_bitwise"],
+                  f"{be}: verify rows or cache writes differ from "
+                  f"sequential decode's: {probe}")
+        else:
+            check(probe["row_max_diff_over_range"] <= BF16_VERIFY_RTOL
+                  and probe["cache_max_diff_over_range"]
+                  <= BF16_VERIFY_RTOL,
+                  f"{be}: verify rows or cache writes differ from "
+                  f"sequential decode's by more than {BF16_VERIFY_RTOL} of "
+                  f"their range: {probe['forms']['norm_columns']}")
+        decoded = stats["new_tokens"] - len(reqs)
+        row = {"accept_mean": stats["spec_accept_mean"],
+               "accept_hist": hist, "passes": stats["spec_passes"],
+               "fallback_steps": len(rec.step_ms),
+               "committed": stats["spec_committed"],
+               "pass_ms_median": statistics.median(rec.pass_ms),
+               "draft_admit_ms": rec.admit_ms,
+               "ms_per_token": (sum(rec.pass_ms) + sum(rec.step_ms)
+                                + sum(rec.admit_ms)) / decoded,
+               "ms_per_token_without_admit": (sum(rec.pass_ms)
+                                              + sum(rec.step_ms)) / decoded,
+               "sequential_ms_per_token": state["ms_per_token"][be],
+               "tokens_equal_sequential": True, "probe": probe}
+        out[be] = row
+        print(f"  spec {be:22s} tokens == sequential; {row['passes']} passes"
+              f" (+{row['fallback_steps']} plain), accepted drafts/pass "
+              f"{row['accept_mean']:.3f}, histogram {hist}; "
+              f"{row['ms_per_token']:.3f} ms per decoded token with the "
+              f"draft's admission prefills ({sum(rec.admit_ms):.3f} ms "
+              f"over {len(rec.admit_ms)}), "
+              f"{row['ms_per_token_without_admit']:.3f} without "
+              f"(sequential {row['sequential_ms_per_token']:.3f}), pass "
+              f"median {row['pass_ms_median']:.3f} ms; verify forms "
+              "(rows bitwise, max diff/range; cache bitwise, max "
+              "diff/range): "
+              + ", ".join(f"{f} {all(r['rows_bitwise'])} "
+                          f"{r['row_max_diff_over_range']:.3g}; "
+                          f"{r['cache_bitwise']} "
+                          f"{r['cache_max_diff_over_range']:.3g}"
+                          for f, r in probe["forms"].items())
+              + "".join(f"; {n}: {probe[n]['ms_median']:.3f} ms, busy "
+                        f"{probe[n]['device_busy_ms']:.3f}, kernels "
+                        f"{probe[n]['kernels_ms']:.3f}, idle "
+                        f"{probe[n]['idle_share']:.2f}, "
+                        f"{probe[n]['launches']} launches"
+                        for n in ("verify", "draft_step")
+                        if "ms_median" in probe[n])
+              + f"; {probe['launches_per_pass']} launches per pass",
+              flush=True)
+        del eng
+    out["config"] = {"k": SPEC_K, "draft_backend": SPEC_DRAFT,
+                     "bitwise_claimed": list(SPEC_BITWISE)}
     return out, launches
+
+
+# ---------------------------------------------------------------------------
+# Phase 9: QAT training of smollm-135m at full width
+# ---------------------------------------------------------------------------
+
+LM_TRAIN_STEPS = 5
+LM_TRAIN_BATCH = 8
+LM_TRAIN_SEQ = 64
+
+
+def lm_train_phase(torch, detail, dev: str, full: bool) -> dict:
+    """LM_TRAIN_STEPS steps of ``make_train_step(qat=True)`` on
+    ``token_stream`` at seq LM_TRAIN_SEQ: smollm-135m at its published width
+    (bf16 parameters from the port's init at seed 0, remat on) when
+    ``full``, else the 2-layer, 64-wide smollm (the CPU rehearsal). The
+    loss must stay finite and fall; ms per step from CUDA events at each
+    step, after the first; one more step profiled."""
+    from repro_torch.configs import registry
+    from repro_torch.data import synthetic
+    from repro_torch.models import transformer_lm as TLM
+    from repro_torch.nn.module import n_params
+    from repro_torch.optim import adamw
+    from repro_torch.train import steps as ST
+
+    if full:
+        cfg = registry.get("smollm-135m")
+        check(n_params(TLM.descs(cfg)) == 134_515_008 and cfg.remat,
+              f"unexpected smollm-135m config {cfg}")
+    else:
+        cfg = registry.reduced("smollm-135m", n_layers=2, d_model=64,
+                               n_heads=4, n_kv_heads=2, d_ff=128, vocab=256,
+                               vocab_pad=256, head_dim=16)
+    params = TLM.init(cfg, torch.Generator().manual_seed(0), device=dev)
+    ocfg = adamw.AdamWConfig(lr=1e-3)
+    opt = adamw.init(params, ocfg)
+    step = ST.make_train_step(cfg, ocfg, qat=True)
+    n_seqs = 8 * LM_TRAIN_BATCH
+    toks = synthetic.token_stream(n_seqs, LM_TRAIN_SEQ + 1, cfg.vocab,
+                                  seed=0)
+    rng = np.random.default_rng(0)
+
+    def batch():
+        idx = rng.integers(0, n_seqs, LM_TRAIN_BATCH)
+        return {"tokens": torch.as_tensor(toks[idx, :-1], device=dev),
+                "labels": torch.as_tensor(toks[idx, 1:], device=dev)}
+
+    losses, stamps = [], []
+    for _ in range(LM_TRAIN_STEPS):
+        b = batch()
+        if dev == "cuda":
+            stamps.append(torch.cuda.Event(enable_timing=True))
+            stamps[-1].record()
+        params, opt, metrics = step(params, opt, b)
+        losses.append(metrics["loss"])
+    out = {"config": {"arch": cfg.name, "n_layers": cfg.n_layers,
+                      "d_model": cfg.d_model, "vocab": cfg.vocab,
+                      "params": n_params(TLM.descs(cfg)),
+                      "param_dtype": str(cfg.param_dtype), "remat": cfg.remat,
+                      "batch": LM_TRAIN_BATCH, "seq": LM_TRAIN_SEQ,
+                      "lr": ocfg.lr, "qat": True}}
+    if dev == "cuda":
+        stamps.append(torch.cuda.Event(enable_timing=True))
+        stamps[-1].record()
+        torch.cuda.synchronize()
+        step_ms = [a.elapsed_time(b) for a, b in zip(stamps, stamps[1:])]
+        b = batch()
+        prof = _profile_ms(torch, lambda: step(params, opt, b))
+        med = statistics.median(step_ms[1:])
+        out.update({"step_ms": step_ms, "ms_per_step": med, **prof,
+                    "idle_share": 1 - prof["device_busy_ms"] / med,
+                    "max_memory_gb":
+                        torch.cuda.max_memory_allocated() / 2**30})
+    losses = [float(v) for v in losses]
+    check(all(np.isfinite(losses)), f"lm_train: loss not finite {losses}")
+    check(losses[-1] < losses[0],
+          f"lm_train: loss did not fall {losses}")
+    out["losses"] = losses
+    print(f"  lm_train {cfg.name} ({out['config']['params']:,} params, "
+          f"batch {LM_TRAIN_BATCH} x {LM_TRAIN_SEQ}): loss "
+          + " -> ".join(f"{v:.4f}" for v in losses)
+          + (f"; {out['ms_per_step']:.3f} ms per step after the first "
+             f"(first {out['step_ms'][0]:.3f}); profiled step: busy "
+             f"{out['device_busy_ms']:.3f} ms, idle "
+             f"{out['idle_share']:.2f}; peak memory "
+             f"{out['max_memory_gb']:.2f} GiB" if dev == "cuda" else ""),
+          flush=True)
+    return out
 
 
 if __name__ == "__main__":

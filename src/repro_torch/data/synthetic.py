@@ -5,6 +5,7 @@ digits and textures, so both packages see identical inputs.
    stroke pattern + random affine jitter + noise, so a CNN must genuinely
    learn shape features; exact-vs-approx deltas are the paper's claim.
  - images: procedural multi-scale textures for denoising (FFDNet stand-in).
+ - tokens: zipf token streams with copy structure (the LM suite's data).
 """
 from __future__ import annotations
 
@@ -86,3 +87,16 @@ def add_noise(images: np.ndarray, sigma: float, seed: int = 0):
     noisy = images + (sigma / 255.0) * rng.standard_normal(
         images.shape).astype(np.float32)
     return np.clip(noisy, 0, 1).astype(np.float32)
+
+
+# --------------------------------------------------------------------- tokens
+
+def token_stream(n_seqs: int, seq_len: int, vocab: int, seed: int = 0):
+    """Zipf tokens with local repetition structure (learnable bigrams)."""
+    rng = np.random.default_rng(seed)
+    base = rng.zipf(1.3, (n_seqs, seq_len)).astype(np.int64) % vocab
+    # inject copy structure: token[t] sometimes repeats token[t-3]
+    mask = rng.random((n_seqs, seq_len)) < 0.3
+    shifted = np.roll(base, 3, axis=1)
+    toks = np.where(mask, shifted, base)
+    return toks.astype(np.int32)

@@ -28,8 +28,8 @@ def _repo_root() -> Path:
 
 
 REPO_ROOT = _repo_root()
-SUITE_HELP = ("'all', one of metrics/hw/denoise/mnist, or a comma list "
-              "(e.g. 'metrics,hw')")
+SUITE_HELP = ("'all', one of metrics/hw/denoise/mnist/lm/serve, or a "
+              "comma list (e.g. 'metrics,hw')")
 DEFAULT_OUT = REPO_ROOT / "experiments" / "torch" / "eval"
 
 

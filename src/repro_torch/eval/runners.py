@@ -9,13 +9,14 @@ metrics and hardware proxies from :mod:`repro_torch.eval.profiles`:
   hw        paper Tables 3/4 — unit-gate proxy (area/energy/delay/PDP)
   denoise   paper §5.2 / Figs 7-8 — FFDNet PSNR/SSIM per backend per sigma
   mnist     paper §5.1 / Table 5 — LeNet-5 accuracy per backend
+  lm        beyond paper — decoder-LM perplexity / logit NMED per backend
+  serve     beyond paper — continuous-batching serving parity per backend
 
-The task suites train with QAT and then sweep bf16, every registered
-backend and the two worst-baseline multiplier variants, on ``device``
-("cuda" unless the caller asks for the CPU). ``smoke`` swaps the
-paper-scale budgets for minute-scale ones without changing the sweep
-structure. The JAX package's ``lm`` and ``serve`` suites wait for the
-port's LM slice.
+The task suites train with QAT (serve: random weights) and then sweep bf16,
+every registered backend and the two worst-baseline multiplier variants, on
+``device`` ("cuda" unless the caller asks for the CPU). ``smoke`` swaps
+the paper-scale budgets for minute-scale ones without changing the sweep
+structure.
 """
 from __future__ import annotations
 
@@ -39,10 +40,6 @@ from repro_torch.train import cnn_train as T
 # Extra (backend, multiplier) points echoing the paper's worst-baseline
 # comparisons (Table 5 / Fig. 8 evaluate design [13] and [16]-D2 too).
 VARIANT_SWEEP = (("approx_lut", "design13"), ("approx_lut", "design16_d2"))
-
-# suites of the JAX package that need the port's transformer LM
-WAITING_FOR_LM = ("lm", "serve")
-
 
 def sweep_points(variants: bool = True) -> List[Tuple[str, str, str]]:
     """(label, backend, multiplier) for bf16 + every registered backend
@@ -156,6 +153,16 @@ def run_mnist(smoke: bool = False, seed: int = 0, device="cuda") -> Dict:
     return artifacts.make_artifact("mnist", {"mnist": rows}, config)
 
 
+def run_lm(smoke: bool = False, seed: int = 0, device="cuda") -> Dict:
+    from repro_torch.eval import lm as LM
+    return LM.run(smoke=smoke, seed=seed, device=device)
+
+
+def run_serve(smoke: bool = False, seed: int = 0, device="cuda") -> Dict:
+    from repro_torch.eval import serve as SERVE
+    return SERVE.run(smoke=smoke, seed=seed, device=device)
+
+
 # ---------------------------------------------------------------------------
 # Suite registry + markdown rendering
 # ---------------------------------------------------------------------------
@@ -263,9 +270,51 @@ SUITES: Dict[str, Suite] = {
             "Paper Table 5 (LeNet-5 on MNIST): exact 98.24, proposed "
             "96.45, design [13] 91.66." + _PROFILE_NOTE)},
         doc="LeNet-5 classification accuracy backend sweep"),
+    "lm": Suite(
+        "lm", run_lm,
+        {"lm": TableSpec(
+            "Decoder LM — perplexity and logit NMED per backend "
+            "(beyond paper)",
+            (("backend", "backend", None), ("ppl", "ppl", ".3f"),
+             ("d_ppl", "Δppl vs bf16", "+.3f"),
+             ("logit_nmed", "logit NMED %", ".4f")) + _PROFILE_COLS,
+            "smollm-family decoder (QAT-trained on a synthetic zipf "
+            "stream), every projection — QKV, attention output, MLP, LM "
+            "head — through the selected backend with per-token activation "
+            "scales. Logit NMED is mean |Δlogit| / max |logit_bf16| vs the "
+            "bf16 reference." + _PROFILE_NOTE)},
+        doc="decoder-LM perplexity/logit-NMED backend sweep"),
+    "serve": Suite(
+        "serve", run_serve,
+        {"serve": TableSpec(
+            "Serving — continuous-batching output parity per backend "
+            "(beyond paper)",
+            (("backend", "backend", None), ("requests", "requests", None),
+             ("new_tokens", "new tokens", None),
+             ("hit_rate", "prefix hit rate", ".3f"),
+             ("solo_match", "solo == batched", None),
+             ("match_bf16", "tokens == bf16 %", ".2f"),
+             ("prefix_bf16", "shared prefix (tok)", ".2f"),
+             ("spec_match", "spec == sequential", None),
+             ("spec_accept", "accepted drafts/pass", ".2f")),
+            "Mixed-length workload behind a shared system prefix (more "
+            "requests than slots; the last request is admitted mid-decode "
+            "into a reused slot on a prefix-cache hit) served by the "
+            "continuous-batching engine (repro_torch.serve) under every "
+            "backend with per-token activation scales. `prefix hit rate` "
+            "is the fraction of prompt tokens gathered from the paged KV "
+            "cache instead of prefilled; `solo == batched` is the engine's "
+            "batching + cache-hit invariance; the bf16 columns measure "
+            "where approximate accumulators first flip a greedy argmax; "
+            "`spec == sequential` re-serves the workload with speculative "
+            "decoding (K=4, approx_stage1 draft), with `accepted "
+            "drafts/pass` the mean acceptance length. Params are "
+            "random-init: this scores the serving path, not task quality "
+            "(see suite `lm`).")},
+        doc="continuous-batching serving parity backend sweep"),
 }
 
-SUITE_ORDER = ("metrics", "hw", "denoise", "mnist")
+SUITE_ORDER = ("metrics", "hw", "denoise", "mnist", "lm", "serve")
 
 
 def resolve_suites(name: str) -> Sequence[str]:
@@ -273,10 +322,6 @@ def resolve_suites(name: str) -> Sequence[str]:
     if name == "all":
         return SUITE_ORDER
     names = tuple(n.strip() for n in name.split(",") if n.strip())
-    waiting = [n for n in names if n in WAITING_FOR_LM]
-    if waiting:
-        raise KeyError(f"suite(s) {waiting} wait for the port's LM slice; "
-                       f"choose from {SUITE_ORDER + ('all',)}")
     unknown = [n for n in names if n not in SUITES]
     if unknown or not names:
         raise KeyError(f"unknown suite(s) {unknown or [name]}; choose from "

@@ -14,16 +14,18 @@ multiplier's CUDA kernels on the card, under the ``*_pallas`` backends.
 
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
 item): windowed, cross and MLA attention, MoE, the SSM layers (rwkv6,
-hymba), stub embeddings and multi-codebook heads (musicgen), and the
-speculative ``verify_step`` / ``rollback_positions``.
+hymba), stub embeddings and multi-codebook heads (musicgen).
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Dict, List, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.nn import attention as A
 from repro_torch.nn import layers as L
@@ -204,36 +206,59 @@ def map_leaves(fn, *trees):
     return fn(*trees)
 
 
+def write_slot(pool, one, slot: int):
+    """Full-row copy of a freshly prefilled batch-1 cache ``one`` into row
+    ``slot`` of the cache pool, in place; returns the pool."""
+    def leaf(p, o):
+        p[:, slot] = o[:, 0]
+        return p
+    return map_leaves(leaf, pool, one)
+
+
 # ---------------------------------------------------------------------------
 # Forward
 # ---------------------------------------------------------------------------
 
-def _mlp(params, x, cfg: ArchConfig):
+def _mlp(params, x, cfg: ArchConfig, qat: bool):
     q = cfg.quant
     if cfg.mlp_act in ("swiglu", "geglu"):
-        g = L.dense({"w": params["wg"]}, x, q)
-        u = L.dense({"w": params["wu"]}, x, q)
+        g = L.dense({"w": params["wg"]}, x, q, qat)
+        u = L.dense({"w": params["wu"]}, x, q, qat)
         act = F.silu(g) if cfg.mlp_act == "swiglu" else L.gelu(g)
         h = act * u
     else:
-        h = L.gelu(L.dense({"w": params["wu"]}, x, q))
-    return L.dense({"w": params["wd"]}, h, q)
+        h = L.gelu(L.dense({"w": params["wu"]}, x, q, qat))
+    return L.dense({"w": params["wd"]}, h, q, qat)
 
 
-def _layer(params, x, cfg: ArchConfig, *, cache, pos):
-    h = L.rmsnorm(params["ln1"], x)
-    ao, new_cache = A.apply(params["attn"], h, cfg.attn_cfg(), cfg.quant,
-                            cache=cache, pos=pos)
+def _rmsnorm_columns(params, x):
+    """``rmsnorm`` of each sequence column alone: the (B, 1, D) shape, and
+    so the reduction order, of a decode step."""
+    return torch.cat([L.rmsnorm(params, x[:, j:j + 1])
+                      for j in range(x.shape[1])], dim=1)
+
+
+def _layer(params, x, cfg: ArchConfig, *, cache, pos, qat, window=False):
+    norm = _rmsnorm_columns if window else L.rmsnorm
+    h = norm(params["ln1"], x)
+    ao, _ = A.apply(params["attn"], h, cfg.attn_cfg(), cfg.quant,
+                    cache=cache, pos=pos, qat=qat)
     x = x + ao
-    h2 = L.rmsnorm(params["ln2"], x)
-    x = x + _mlp(params["mlp"], h2, cfg)
-    return x, new_cache
+    h2 = norm(params["ln2"], x)
+    return x + _mlp(params["mlp"], h2, cfg, qat)
 
 
-def backbone(params, x, cfg: ArchConfig, *, caches=None, pos=None):
+def backbone(params, x, cfg: ArchConfig, *, caches=None, pos=None,
+             qat: bool = False, training: bool = False,
+             window: bool = False):
     """x: (B,S,D) embeddings -> (hidden, caches). A Python loop over each
-    group's stacked layers; the caches are written in place."""
+    group's stacked layers; the caches are written in place. ``qat`` runs
+    every projection as fake-quant; ``training`` with ``cfg.remat``
+    recomputes each layer in the backward instead of keeping its
+    activations (the reference's ``jax.checkpoint``). ``window`` is
+    :func:`verify_step`'s: the norms run per column."""
     check_ported(cfg)
+    remat = cfg.remat and training and caches is None
     for bi, (rep, kinds) in enumerate(cfg.blocks()):
         bparams = params["blocks"][bi]
         bcache = None if caches is None else caches["blocks"][bi]
@@ -243,8 +268,12 @@ def backbone(params, x, cfg: ArchConfig, *, caches=None, pos=None):
                 key = f"k{i}_{kind}"
                 c = (None if bcache is None else
                      {n: t[r] for n, t in bcache[key].items()})
-                x, _ = _layer(lp[key], x, cfg, cache=c, pos=pos)
-    return L.rmsnorm(params["final_ln"], x), caches
+                fn = functools.partial(_layer, cache=c, pos=pos, qat=qat,
+                                       window=window)
+                x = (checkpoint(fn, lp[key], x, cfg, use_reentrant=False)
+                     if remat else fn(lp[key], x, cfg))
+    norm = _rmsnorm_columns if window else L.rmsnorm
+    return norm(params["final_ln"], x), caches
 
 
 def embed_tokens(params, tokens, cfg: ArchConfig):
@@ -252,20 +281,22 @@ def embed_tokens(params, tokens, cfg: ArchConfig):
     return x.to(torch.bfloat16) if cfg.param_dtype == torch.bfloat16 else x
 
 
-def lm_logits(params, hidden, cfg: ArchConfig):
+def lm_logits(params, hidden, cfg: ArchConfig, *, qat: bool = False):
     """Final projection to the vocab, through the backend registry for a
-    quantized config (the widest matmul of the stack)."""
+    quantized config (the widest matmul of the stack); under ``qat`` a
+    float matmul over the fake-quantized table (``layers.logits``)."""
     table = (params["lm_head"]["table"] if "lm_head" in params
              else params["embed"]["table"])
     return L.logits({"table": table}, hidden, true_vocab=cfg.vocab,
-                    quant=cfg.quant)
+                    quant=cfg.quant, qat=qat)
 
 
-def forward_loss(params, batch, cfg: ArchConfig):
+def forward_loss(params, batch, cfg: ArchConfig, *, qat: bool = False,
+                 training: bool = True):
     """batch: {tokens, labels} -> scalar mean cross-entropy."""
     x = embed_tokens(params, batch["tokens"], cfg)
-    h, _ = backbone(params, x, cfg)
-    lg = lm_logits(params, h, cfg)
+    h, _ = backbone(params, x, cfg, qat=qat, training=training)
+    lg = lm_logits(params, h, cfg, qat=qat)
     return L.softmax_cross_entropy(lg, batch["labels"], cfg.vocab)
 
 
@@ -300,6 +331,76 @@ def decode_step(params, token, pos, cfg: ArchConfig, caches):
     x = embed_tokens(params, token, cfg)
     h, caches = backbone(params, x, cfg, caches=caches, pos=pos)
     return lm_logits(params, h, cfg), caches
+
+
+def position_indexed(cfg: ArchConfig) -> bool:
+    """Whether every cache leaf of ``cfg`` is indexed by absolute position
+    (global attention only): what prompt padding, paging and rollback need.
+    The predicate of the reference's ``serve.padded_prefill_ok``."""
+    return cfg.ssm == "" and cfg.local_ratio == 0 and cfg.local_window == 0
+
+
+def require_position_indexed(cfg: ArchConfig) -> None:
+    """Refuse speculation (verify and rollback) over ``cfg``'s caches."""
+    if not position_indexed(cfg):
+        raise ValueError(
+            "speculative decoding requires position-indexed caches: SSM "
+            "states and windowed ring buffers cannot roll back rejected "
+            f"positions ({cfg.name})")
+
+
+def verify_step(params, window, pos, cfg: ArchConfig, caches):
+    """One speculative verify pass: a (B, K) token window per cache row.
+
+    ``window[b]`` holds the row's committed next-input token followed by
+    K-1 draft proposals; ``pos`` is the (B,) position of ``window[:, 0]``,
+    so row b's tokens sit at absolute positions ``pos[b] + [0, K)``. Logits
+    row j is the model's next-token distribution after consuming
+    ``window[:, :j+1]``. KV for all K window positions is written to the
+    cache in place; the caller erases positions past the accepted frontier
+    with :func:`rollback_positions` before the next step.
+
+    This is :func:`decode_step` at width K, with one difference: the RMS
+    norms run once per window column, each on the (B, 1, D) shape of a
+    decode step. On the card ``torch.mean``'s launch configuration, and
+    with it its summation order, depends on its output count, so a norm
+    over the whole window rounds differently from the K sequential steps.
+    The projections and the attention stay at width K: the int8 codes and
+    integer sums are row-local and exact, the dequantization elementwise,
+    and the attention's masked window positions weigh exactly 0. So for
+    every integer backend, row j equals the j-th sequential
+    :func:`decode_step`'s logits bit for bit, and the cache writes equal
+    its writes; under ``bf16`` the float projections are not row-local, and
+    only the tokens are claimed."""
+    require_position_indexed(cfg)
+    x = embed_tokens(params, window, cfg)
+    h, caches = backbone(params, x, cfg, caches=caches, pos=pos, window=True)
+    return lm_logits(params, h, cfg), caches
+
+
+def rollback_positions(caches, start, stop):
+    """Zero cache positions ``[start[b], stop[b])`` of every row b, in place,
+    and return the caches: the speculative un-commit. A freshly initialized
+    cache is zero, so "erased" and "never written" are the same state.
+
+    Every leaf is (rep, batch, max_len, ...), position-indexed (the port
+    builds no other cache; ``verify_step`` refuses configs that would).
+    start/stop: (B,) position bounds per row (start >= stop is a no-op for
+    that row). Pure masking, exact under every backend."""
+    def leaf(x):
+        if x.ndim < 3 or x.shape[1] != len(start):
+            raise ValueError(f"cache leaf of shape {tuple(x.shape)} is not "
+                             f"(rep, {len(start)}, max_len, ...)")
+        lo = torch.as_tensor(np.asarray(start), dtype=torch.int64,
+                             device=x.device)
+        hi = torch.as_tensor(np.asarray(stop), dtype=torch.int64,
+                             device=x.device)
+        p = torch.arange(x.shape[2], device=x.device)
+        drop = (p[None, :] >= lo[:, None]) & (p[None, :] < hi[:, None])
+        x.masked_fill_(drop.reshape(1, *drop.shape, *(1,) * (x.ndim - 3)), 0)
+        return x
+
+    return map_leaves(leaf, caches)
 
 
 # ---------------------------------------------------------------------------

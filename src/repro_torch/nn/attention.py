@@ -204,7 +204,7 @@ def _b(params, name):
 
 
 def apply(params, x: torch.Tensor, cfg: AttnConfig, quant: QuantConfig, *,
-          cache=None, pos=None):
+          cache=None, pos=None, qat: bool = False):
     """Returns (out, cache).
 
     Modes:
@@ -217,13 +217,14 @@ def apply(params, x: torch.Tensor, cfg: AttnConfig, quant: QuantConfig, *,
                 is at its own depth; writes and masks are per row).
     The cache is written in place at the queries' absolute positions;
     positions past each row's last written one are masked (k_pos = -1).
+    ``qat`` runs every projection as fake-quant (``layers.dense``).
     """
     check_ported(cfg)
     b, s, _ = x.shape
     dh = cfg.head_dim
-    q = L.dense({"w": params["wq"], **_b(params, "bq")}, x, quant)
-    k = L.dense({"w": params["wk"], **_b(params, "bk")}, x, quant)
-    v = L.dense({"w": params["wv"], **_b(params, "bv")}, x, quant)
+    q = L.dense({"w": params["wq"], **_b(params, "bq")}, x, quant, qat)
+    k = L.dense({"w": params["wk"], **_b(params, "bk")}, x, quant, qat)
+    v = L.dense({"w": params["wv"], **_b(params, "bv")}, x, quant, qat)
     q = q.reshape(b, s, cfg.n_heads, dh)
     k = k.reshape(b, s, cfg.n_kv_heads, dh)
     v = v.reshape(b, s, cfg.n_kv_heads, dh)
@@ -234,7 +235,7 @@ def apply(params, x: torch.Tensor, cfg: AttnConfig, quant: QuantConfig, *,
 
     if cache is None:
         out = _sdpa(q, k, v, q_pos, q_pos, cfg.window, p_bf16=cfg.p_bf16)
-        return L.dense({"w": params["wo"]}, out, quant), None
+        return L.dense({"w": params["wo"]}, out, quant, qat), None
 
     ck, cv = cache["k"], cache["v"]
     slots = ck.shape[1]
@@ -245,4 +246,4 @@ def apply(params, x: torch.Tensor, cfg: AttnConfig, quant: QuantConfig, *,
     written = q_pos[:, -1:] + 1                      # (B, 1)
     k_pos = torch.where(slot_ids < written, slot_ids, -1)
     out = _sdpa(q, ck, cv, q_pos, k_pos, cfg.window, p_bf16=cfg.p_bf16)
-    return L.dense({"w": params["wo"]}, out, quant), cache
+    return L.dense({"w": params["wo"]}, out, quant, qat), cache

@@ -97,15 +97,21 @@ def embed(params, ids: torch.Tensor) -> torch.Tensor:
 
 
 def logits(params, x: torch.Tensor, true_vocab: Optional[int] = None,
-           quant: Optional[QuantConfig] = None) -> torch.Tensor:
+           quant: Optional[QuantConfig] = None,
+           qat: bool = False) -> torch.Tensor:
     """x @ table.T in float32, with the padded vocab entries masked to the
     float32 minimum.
 
     A quantized ``quant`` runs the projection through the backend registry
     like every other LM matmul (the head is the widest projection of the
-    stack)."""
+    stack). Under QAT (``qat=True``) it mirrors ``dense``: a float matmul
+    over the fake-quantized table (per-vocab-row scales, the deployed
+    per-channel quantization of ``table.T``)."""
     table = params["table"]
-    if quant is not None and quant.is_quantized:
+    if qat:
+        table = fake_quant_per_channel(table, axis=0)   # per vocab row
+        out = torch.matmul(x.to(torch.float32), table.to(torch.float32).t())
+    elif quant is not None and quant.is_quantized:
         out = quantized_matmul(x, table.t(), quant).to(torch.float32)
     else:
         out = torch.matmul(x.to(torch.float32), table.to(torch.float32).t())

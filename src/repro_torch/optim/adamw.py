@@ -1,7 +1,7 @@
 """AdamW with optional int8 blockwise-quantized second moments.
 
-The JAX package's update (``repro/optim/adamw.py``) on nested dicts of
-tensors, in its math and order: clip by the global norm over all
+The JAX package's update (``repro/optim/adamw.py``) on nested dicts (and
+lists) of tensors, in its math and order: clip by the global norm over all
 gradients (summed in sorted-key order, as ``jax.tree.leaves`` flattens),
 bias correction in float32 from an int32 step count, ``mhat /
 (sqrt(vhat) + eps)``, weight decay added to the update of tensors of two
@@ -35,25 +35,38 @@ class AdamWConfig:
 
 
 def flatten(tree, prefix=()) -> List[Tuple[tuple, torch.Tensor]]:
-    """(path, leaf) pairs of a nested dict, keys sorted at every level: the
+    """(path, leaf) pairs of a nested tree of dicts and lists, dict keys
+    sorted at every level and list items in order (an int in the path): the
     leaf order of ``jax.tree.leaves``."""
-    if not isinstance(tree, dict):
+    if isinstance(tree, dict):
+        items = ((key, tree[key]) for key in sorted(tree))
+    elif isinstance(tree, (list, tuple)):
+        items = enumerate(tree)
+    else:
         return [(prefix, tree)]
     out = []
-    for key in sorted(tree):
-        out += flatten(tree[key], prefix + (key,))
+    for key, sub in items:
+        out += flatten(sub, prefix + (key,))
     return out
 
 
+def _listify(node):
+    if not isinstance(node, dict):
+        return node
+    if node and all(isinstance(key, int) for key in node):
+        return [_listify(node[i]) for i in range(len(node))]
+    return {key: _listify(sub) for key, sub in node.items()}
+
+
 def unflatten(pairs) -> Dict:
-    """Inverse of ``flatten``."""
+    """Inverse of ``flatten``: int path items rebuild lists."""
     out: Dict = {}
     for path, leaf in pairs:
         node = out
         for key in path[:-1]:
             node = node.setdefault(key, {})
         node[path[-1]] = leaf
-    return out
+    return _listify(out)
 
 
 def _state_for(p: torch.Tensor, cfg: AdamWConfig) -> Dict[str, torch.Tensor]:

@@ -6,18 +6,21 @@ Public surface:
   SlotScheduler                          — admission + slot free-list
   PagePool, PrefixCache                  — refcounted page ids + radix
                                            prefix cache (paging.py)
+  SpecConfig, Speculator, SpecMetrics    — draft-model speculative
+                                           decoding (speculative.py)
   padded_prefill_ok                      — the paging / padding predicate
 
 ``python -m repro_torch.serve`` serves a request queue from the command
-line (__main__.py). Speculative decoding and the sharded engine are later
-slices of the port.
+line (__main__.py). The sharded engine is a later slice of the port.
 """
 from repro_torch.serve.engine import (Engine, FINISH_REASONS, ServeRequest,
                                       padded_prefill_ok)
 from repro_torch.serve.paging import PagePool, PrefixCache
 from repro_torch.serve.sampling import GREEDY, SamplingConfig, sample_token
 from repro_torch.serve.scheduler import SlotScheduler
+from repro_torch.serve.speculative import SpecConfig, SpecMetrics, Speculator
 
 __all__ = ["Engine", "ServeRequest", "FINISH_REASONS", "SamplingConfig",
            "GREEDY", "sample_token", "SlotScheduler", "PagePool",
-           "PrefixCache", "padded_prefill_ok"]
+           "PrefixCache", "SpecConfig", "SpecMetrics", "Speculator",
+           "padded_prefill_ok"]

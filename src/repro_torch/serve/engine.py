@@ -32,10 +32,15 @@ the accumulators (norms, attention, the dequant epilogue), since PyTorch's
 kernels may choose another reduction order for another batch shape; the
 JAX package pins its float order under jit with ``_pin`` instead.
 
+Speculative decoding (``spec=``, serve/speculative.py): a draft proposes
+K-1 tokens per slot, the target scores the (slots, K) window in one
+``verify_step`` pass, the engine commits the agreeing prefix plus the
+target's own token and erases the rejected KV from both pools. The tokens
+served are those of sequential decode.
+
 There is no counterpart of the reference's ``compiled_fns`` (its jitted
 prefill/decode cache): PyTorch runs eagerly. ``mesh=`` (the sharded engine)
-and ``spec=`` (speculative decoding) are later slices of the port and
-raise ``NotImplementedError``.
+is a later slice of the port and raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -63,6 +68,11 @@ class ServeRequest:
     prompt: np.ndarray                  # (len,) int32, len >= 1
     max_new: int = 16
     sampling: SamplingConfig = GREEDY
+    # per-request speculation cap: None -> the engine's SpecConfig window,
+    # 0 -> sequential decode for this request, n -> accept at most n drafts
+    # per verify pass (clamped to the engine window). The emitted tokens
+    # are the same either way.
+    spec_k: Optional[int] = None
     # filled by the engine:
     output: List[int] = dataclasses.field(default_factory=list)
     finish_reason: Optional[str] = None
@@ -74,16 +84,7 @@ def padded_prefill_ok(cfg: ArchConfig) -> bool:
     whether the prefix cache may page the KV: only position-indexed caches
     (global attention) mask padded junk by absolute position and have
     per-position KV to page. The same predicate as the reference's."""
-    return cfg.ssm == "" and cfg.local_ratio == 0 and cfg.local_window == 0
-
-
-def _write_slot(pool, one, slot: int):
-    """Full-row copy of a freshly prefilled batch-1 cache into slot row
-    ``slot`` of the pool, in place."""
-    def leaf(p, o):
-        p[:, slot] = o[:, 0]
-        return p
-    return TLM.map_leaves(leaf, pool, one)
+    return TLM.position_indexed(cfg)
 
 
 class Engine:
@@ -99,16 +100,23 @@ class Engine:
                  cache_dtype=torch.float32,
                  prefix_caching: bool = True, page_size: int = 8,
                  cache_pages: Optional[int] = None,
-                 mesh=None, spec=None, device="cuda"):
+                 mesh=None, spec=None, draft_params=None, device="cuda"):
         if mesh is not None:
             raise NotImplementedError(
                 "Engine(mesh=...) — the sharded engine — is not ported yet: "
                 "ROADMAP.md queue A, item 20")
-        if spec is not None:
-            raise NotImplementedError(
-                "Engine(spec=...) — speculative decoding — is not ported "
-                "yet: ROADMAP.md queue A, item 14")
         self.device = resolve_device(device)
+        # ---- draft-model speculation (serve/speculative.py); built first,
+        # so that a layout it cannot roll back is refused before any
+        # allocation
+        self.speculator = None
+        if spec is not None:
+            from repro_torch.serve.speculative import Speculator
+            self.speculator = Speculator(
+                spec, cfg, params, draft_params, slots=slots,
+                max_len=max_len, cache_dtype=cache_dtype,
+                device=self.device)
+            TLM.map_leaves(self._check_device, self.speculator.params)
         TLM.map_leaves(self._check_device, params)
         self.cfg, self.params = cfg, params
         self.slots, self.max_len, self.eos_id = slots, max_len, eos_id
@@ -207,7 +215,7 @@ class Engine:
             self.prefill_tokens += len(suffix)
             # full-row copy: the freed slot inherits nothing from its
             # previous occupant (no KV leakage on reuse)
-            self.pool = _write_slot(self.pool, fresh, slot)
+            self.pool = TLM.write_slot(self.pool, fresh, slot)
             self._slot_req[slot] = req
             self._pos[slot] = plen
             if req.max_new <= 0:
@@ -219,6 +227,10 @@ class Engine:
                 self._retire(slot)
             else:
                 self._tok[slot] = req.output[-1]
+                if self.speculator is not None:
+                    # draft-side cold prefill of the full prompt (the draft
+                    # never reads the paged prefix store)
+                    self.speculator.admit(slot, req.prompt, self._bucket)
 
     # ---- token emission / finish ----------------------------------------
     def _emit(self, req: ServeRequest, tok: int) -> None:
@@ -265,14 +277,37 @@ class Engine:
                 [p for p, _ in new], [i for _, i in new])
 
     # ---- the serving loop ------------------------------------------------
+    def _spec_eligible(self, active: List[int]) -> bool:
+        """A spec pass needs every active slot's K window positions in
+        bounds (a row cannot opt out of the batched verify), and at least
+        one request that wants drafts. Near the cache ceiling the engine
+        falls back to plain steps; mixing pass kinds never changes the
+        served tokens."""
+        if self.speculator is None:
+            return False
+        k = self.speculator.spec.k
+        if any(self._pos[s] + k > self.max_len for s in active):
+            return False
+        return any((self._slot_req[s].spec_k is None
+                    or self._slot_req[s].spec_k > 0) for s in active)
+
     def step(self) -> bool:
-        """Admit into free slots, then one (slots, 1) decode step over the
-        whole pool. Returns False once queue and pool are both empty."""
+        """Admit into free slots, then one pass over the whole pool: a
+        (slots, K) speculative verify pass when configured and in bounds, a
+        (slots, 1) decode step otherwise. Returns False once queue and pool
+        are both empty."""
         with torch.no_grad():
             self._admit()
             active = [s for s in range(self.slots) if self._slot_req[s]]
             if not active:
                 return not self.sched.idle
+            if self._spec_eligible(active):
+                self._spec_step(active)
+                return True
+            if self.speculator is not None:
+                # keep the draft pool on the true stream through the
+                # fallback
+                self.speculator.advance(self._tok, self._pos)
             logits, self.pool = self._decode(
                 self.params, self.pool, self._tensor(self._tok[:, None]),
                 self._tensor(self._pos))
@@ -291,6 +326,60 @@ class Engine:
                 self._tok[s] = tok
         return True
 
+    def _spec_step(self, active: List[int]) -> None:
+        """One draft-propose / target-verify / commit / rollback pass.
+
+        Commits n in [1, K] tokens per active slot: emission j samples
+        verify logits row j keyed by the committed-token counter, and goes
+        on while the emitted token equals the draft the next row was
+        verified against. Rejected window positions are erased from both
+        pools before any retirement publishes pages, so every row ends in
+        its sequential-decode state."""
+        spec = self.speculator
+        k = spec.spec.k
+        p0 = self._pos.copy()
+        window = spec.propose(self._tok, self._pos)
+        logits, self.pool = TLM.verify_step(
+            self.params, self._tensor(window), self._tensor(p0), self.cfg,
+            self.pool)
+        rows = logits.cpu().numpy()                 # one host transfer
+        self.decode_steps += 1
+        self.busy_slot_steps += len(active)
+        spec.metrics.passes += 1
+        frontier = p0.copy()                        # rollback start/slot
+        retired: List[int] = []
+        for s in active:
+            req = self._slot_req[s]
+            cap = k if req.spec_k is None else 1 + min(max(req.spec_k, 0),
+                                                       k - 1)
+            emitted = 0
+            for j in range(cap):
+                tok = sample_token(rows[s, j], req.sampling, req.rid,
+                                   len(req.output))
+                self._emit(req, tok)
+                emitted += 1
+                if req.finish_reason:
+                    break
+                # go on only while the next verified row consumed this
+                # exact token (the draft proposal at window j+1)
+                if j + 1 >= cap or tok != window[s, j + 1]:
+                    break
+            spec.metrics.record(drafted=cap - 1, committed=emitted)
+            frontier[s] = p0[s] + emitted
+            if req.finish_reason:
+                retired.append(s)
+            else:
+                self._tok[s] = req.output[-1]
+                self._pos[s] = p0[s] + emitted
+        # un-commit rejected positions [frontier, p0 + K) in both pools.
+        # Parked rows (frontier == p0 == 0) collected junk at [0, K) during
+        # the pass: erased the same way.
+        stop = p0 + k
+        TLM.rollback_positions(self.pool, frontier, stop)
+        spec.rollback(frontier, stop)
+        for s in retired:
+            self._retire(s)
+
     def run(self) -> Dict:
         """Serve until the queue drains; returns the stats summary."""
         t0 = time.time()
@@ -303,4 +392,6 @@ class Engine:
                          prefill_tokens=self.prefill_tokens,
                          prefix_hit_tokens=self.prefix_hit_tokens,
                          prefix_stats=(self.prefix.stats()
-                                       if self.prefix else None))
+                                       if self.prefix else None),
+                         spec=(self.speculator.metrics.summary()
+                               if self.speculator else None))

@@ -48,9 +48,8 @@ def summarize(completed, elapsed_s: float, *, n_slots: int,
     drives up (every avoided prefill token skips the MAC-densest phase,
     where the approximate-multiplier energy savings are largest).
 
-    ``spec`` is the speculative-decoding summary of the JAX package's
-    ``serve.speculative.SpecMetrics`` (None on a non-speculative engine;
-    the port has no speculative engine yet):
+    ``spec`` is the speculative-decoding summary from
+    ``serve.speculative.SpecMetrics`` (None on a non-speculative engine):
     verify passes, drafted vs committed token counters, and the
     acceptance-length histogram — hist[a] counts verify outcomes that
     accepted exactly a draft tokens, so committed == accepted + outcomes

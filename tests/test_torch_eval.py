@@ -114,16 +114,20 @@ def test_backend_profiles_equal_reference():
 
 
 def test_suite_tables_and_order():
-    assert R.SUITE_ORDER == ("metrics", "hw", "denoise", "mnist")
-    assert R.SUITE_ORDER == RR.SUITE_ORDER[:4]
+    assert R.SUITE_ORDER == ("metrics", "hw", "denoise", "mnist", "lm",
+                             "serve")
+    assert R.SUITE_ORDER == RR.SUITE_ORDER
     for name in R.SUITE_ORDER:
         assert list(R.SUITES[name].tables) == list(RR.SUITES[name].tables)
         for tname, spec in R.SUITES[name].tables.items():
             ref = RR.SUITES[name].tables[tname]
             assert (spec.title, spec.columns) == (ref.title, ref.columns)
             # the task tables' notes drop the JAX package's parenthesis
-            # on why its data are synthetic; the rest is the same text
-            assert spec.note == ref.note or name in TASK_KEYS
+            # on why its data are synthetic, and the LM tables' notes its
+            # pointers to its own docs, tests and benchmarks; the rest is
+            # the same text
+            assert spec.note == ref.note or name in (*TASK_KEYS, "lm",
+                                                     "serve")
 
 
 def test_resolve_suites():
@@ -132,9 +136,10 @@ def test_resolve_suites():
     for bad in ("metrics,nope", ","):
         with pytest.raises(KeyError, match="unknown suite"):
             R.resolve_suites(bad)
-    for waiting in ("lm", "serve", "metrics,lm"):
-        with pytest.raises(KeyError, match="LM slice"):
-            R.resolve_suites(waiting)
+    assert R.resolve_suites("all") == ("metrics", "hw", "denoise", "mnist",
+                                       "lm", "serve")
+    assert R.resolve_suites("lm,serve") == ("lm", "serve")
+    assert R.resolve_suites("serve, lm") == ("serve", "lm")
 
 
 # ---------------------------------------------------------------------------
@@ -277,7 +282,7 @@ def test_cli_run_and_render_on_cpu(tmp_path):
                      str(tmp_path)]) == 0
         assert (tmp_path / f"{suite}.md").read_text() == md
     assert main(["render", "--suite", "mnist", "--out", str(tmp_path)]) == 1
-    assert main(["run", "--suite", "lm", "--out", str(tmp_path)]) == 2
+    assert main(["run", "--suite", "nope", "--out", str(tmp_path)]) == 2
     assert DEFAULT_OUT == ROOT / "experiments" / "torch" / "eval"
 
 

@@ -183,7 +183,7 @@ def test_launch_counters_stay_zero_on_cpu():
         assert fn.launches == 0 and sum(fn.variant_launches.values()) == 0
 
 
-def test_build_writes_generated_header_and_needs_nvcc(tmp_path, monkeypatch):
+def test_build_writes_no_generated_header_and_needs_nvcc(tmp_path, monkeypatch):
     """Without a CUDA compiler the build raises instead of falling back.
     It compiles the sources in csrc/ alone: none includes the generated
     deficit header (codegen.emit_header, the circuit's record), since the

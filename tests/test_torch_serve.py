@@ -49,10 +49,11 @@ from repro_torch.quant import matmul as QM
 from repro_torch.quant.quantize import for_lm
 from repro_torch.serve import (Engine, FINISH_REASONS, PagePool, PrefixCache,
                                SamplingConfig, ServeRequest, SlotScheduler,
-                               padded_prefill_ok, sample_token)
+                               SpecConfig, padded_prefill_ok, sample_token)
 from repro_torch.serve import __main__ as CLI
 from repro_torch.serve import engine as PE
 from repro_torch.serve import sampling as PS
+from repro_torch.train.serve_loop import Server
 
 torch.set_num_threads(1)
 
@@ -297,6 +298,28 @@ def test_engine_stats_are_sane():
         assert r.timing.total_s >= r.timing.ttft_s
 
 
+def test_drain_server_serves_the_engine_tokens():
+    """``train/serve_loop.Server``: the engine under the 'drain' policy
+    (admit a full wave, decode it out, then the next) serves the tokens of
+    continuous batching, and counts its waves as ``batches``."""
+    cfg = _cfg("int8_exact")
+
+    def reqs():
+        return [ServeRequest(rid=i, prompt=p, max_new=m) for i, (p, m) in
+                enumerate(zip(_prompts([3, 5, 4], seed=12), (4, 2, 3)))]
+
+    cont, _, _ = _serve(cfg, reqs())
+    srv = Server(cfg, _tiny()[3], batch_slots=2, max_len=MAX_LEN,
+                 device="cpu")
+    for r in reqs():
+        srv.submit(r)
+    stats = srv.run()
+    assert {r.rid: r.output for r in srv.completed} == \
+        {rid: r.output for rid, r in cont.items()}
+    assert stats["batches"] == stats["waves"] == 2
+    assert srv.engine.sched.policy == "drain"
+
+
 def test_engine_rejects_what_it_does_not_run():
     cfg, params = _cfg("bf16"), _tiny()[3]
     eng = Engine(cfg, params, slots=1, max_len=8, device="cpu")
@@ -304,8 +327,9 @@ def test_engine_rejects_what_it_does_not_run():
         eng.submit(ServeRequest(rid=0, prompt=np.zeros(0, np.int32)))
     with pytest.raises(NotImplementedError, match="item 20"):
         Engine(cfg, params, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 14"):
-        Engine(cfg, params, spec=object(), device="cpu")
+    with pytest.raises(ValueError, match="position-indexed"):
+        Engine(dataclasses.replace(cfg, local_window=8), params,
+               spec=SpecConfig(k=4), device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             Engine(cfg, params)                  # the card by default
