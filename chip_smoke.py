@@ -27,7 +27,11 @@ Phases, each printing its seconds:
             decode (4 slots of one row), verify (4 slots of a K = 4
             window) and prefill shapes, the lm suite's eval shapes
             (32 x 64 rows, d_model 128) and the serve suite's decode,
-            verify and prefill shapes, printing the CUDA-core plan
+            verify and prefill shapes; K2 and K4 (the LM routes) at
+            gemma3-27b's and deepseek-v2's decode shapes (the gemma3 head,
+            5,376 x 262,144, in 37 column tiles of RANK1) and gemma3's
+            1,000-token prefill; K3 and K4 in 24 column tiles of a small
+            budget; printing the CUDA-core plan
             (tile, K slices) of each; hold every backend's
             int32 output to the JAX
             package's (src/repro_torch/testdata/reference.npz); time each
@@ -111,13 +115,42 @@ Phases, each printing its seconds:
             smollm-135m (bf16 parameters from seed 0, remat) on
             token_stream, batch 8 x 64: finite, falling loss; ms per step
             from CUDA events after the first; one step profiled;
-10. launch counts, set to 0 before each of phases 4, 5 and 6 (the suite
-   runners' calls), 7 (the served runs) and 8 (the speculative runs) and
-   read after it: LeNet-5 and FFDNet each launch every entry but
-   fused_matmul[exact], the suites and spec every fused entry, the serve
-   path K2[deficit], K2[stage1], K4 and (unfused) K1[stage1];
-11. one JSON line each ``{"suites": {...}}``, ``{"serve": {...}}``,
-   ``{"spec": {...}}``, ``{"lm_train": {...}}`` and ``{"kernels": [...]}``;
+10. gemma  gemma3-27b at its published widths (bf16 parameters from seed
+            0, the large leaves drawn on the card): all 62 layers
+            (27.0 B parameters, block program [(10, local x 5 + global),
+            (1, global x 2)]) serve the serve suite's workload under bf16
+            and approx_deficit_pallas, unpaged at exact prompt lengths
+            (max_len 112: the window of 1,024 masks, no ring wraps), with
+            the peak memory; then its first 6 layers (one 5:1 group, the
+            window as published) serve 4 requests of 1,000-1,020 prompt
+            tokens and 32-48 new into 2 slots at max_len 1,088, so that
+            decode wraps the rings, under bf16 and the three CUDA
+            backends: deficit's and rank1's tokens and every sampled logits
+            row bitwise equal; each CUDA backend equal to its oracle
+            (approx_lut / approx_stage1) on the workload's first 2
+            requests cut to 48 prompt tokens and 6 new (ORACLE_PREFIX);
+            bf16's rows past position 1,024 within RING_RTOL of a
+            cache-free forward over the whole sequence; per backend the
+            serving's step ms and a fixed step's ms, busy, kernels and
+            idle share;
+11. deepseek deepseek-v2-236b at its published widths (d_model 5,120, 128
+            heads, kv_lora 512, 160 experts top-6, 2 shared) at depth 4
+            (17.3 B parameters, seed 0) on the serve suite's workload with
+            the prefix cache, under bf16, the oracles and the three CUDA
+            backends (each bitwise equal to its oracle, tokens and rows),
+            and one speculative serving (K = 4, approx_stage1_pallas
+            draft, approx_deficit_pallas target) equal to sequential
+            decode;
+12. launch counts, set to 0 before each of phases 4, 5 and 6 (the suite
+   runners' calls), 7 (the served runs), 8 (the speculative runs) and the
+   served runs of 10 and 11, and read after it: LeNet-5 and FFDNet each
+   launch every entry but fused_matmul[exact], the suites, spec and the
+   ring and deepseek paths every fused entry, the serve path K2[deficit],
+   K2[stage1], K4 and (unfused) K1[stage1], full-depth gemma3
+   K2[deficit];
+13. one JSON line each ``{"suites": {...}}``, ``{"serve": {...}}``,
+   ``{"spec": {...}}``, ``{"lm_train": {...}}``, ``{"gemma": {...}}``,
+   ``{"deepseek": {...}}`` and ``{"kernels": [...]}``;
 then the ``nvidia-smi`` name and power limit, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure raises: the script exits
 non-zero and prints no result. It imports nothing of JAX.
@@ -210,6 +243,12 @@ SUITE_VARIANTS = [("fused_matmul", "deficit"), ("fused_matmul", "stage1"),
 # the serve phase: per-token (for_lm) routes of the CUDA backends, fused,
 # and approx_stage1_pallas once unfused
 SERVE_VARIANTS = SUITE_VARIANTS + [("approx_matmul", "stage1")]
+# the new archs' paths run the fused per-token routes; the full-depth
+# gemma3 path serves bf16 and approx_deficit_pallas only
+ARCH_VARIANTS = SUITE_VARIANTS
+PATH_NEEDS = {"suites": SUITE_VARIANTS, "serve": SERVE_VARIANTS,
+              "spec": SUITE_VARIANTS, "gemma": [("fused_matmul", "deficit")],
+              "gemma_ring": ARCH_VARIANTS, "deepseek": ARCH_VARIANTS}
 
 LENET_LAYERS = {  # (B, M, K, N) of each quantized matmul at batch 50
     "lenet5.c1": (50, 784, 25, 6), "lenet5.c2": (50, 196, 150, 16),
@@ -249,8 +288,24 @@ SERVE_SUITE_LAYERS = {  # the serve suite's full arch (4 slots, d_model 128)
     "ss.verify.up": (4, 4, 128, 256), "ss.verify.down": (4, 4, 256, 128),
     "ss.verify.head": (4, 4, 128, 512),
     "ss.prefill.up": (1, 32, 128, 256)}
+ARCH_LAYERS = {  # gemma3-27b and deepseek-v2-236b: decode of 4 slots, and
+    # gemma3's long-context prefill (the depth-6 ring workload's ~1,000-
+    # token prompts); held for the LM routes only (ARCH_VARIANTS)
+    "gemma.decode.q": (4, 1, 5376, 4096),
+    "gemma.decode.kv": (4, 1, 5376, 2048),
+    "gemma.decode.o": (4, 1, 4096, 5376),
+    "gemma.decode.gu": (4, 1, 5376, 21504),
+    "gemma.decode.d": (4, 1, 21504, 5376),
+    "gemma.decode.head": (4, 1, 5376, 262144),
+    "gemma.prefill.gu": (1, 1000, 5376, 21504),
+    "dsv2.decode.wq": (4, 1, 5120, 24576),
+    "dsv2.decode.wdkv": (4, 1, 5120, 576),
+    "dsv2.decode.wo": (4, 1, 16384, 5120),
+    "dsv2.decode.head": (4, 1, 5120, 102400)}
+# RANK1's column tiles under a small budget (rank1_column_tiles): 24 tiles
+TILED_LAYER = ("smollm.decode.up", 576 * (8 + 104) * 64)
 TIMED_LAYERS = {**LAYERS, **SERVE_LAYERS, **VERIFY_LAYERS, **LM_SUITE_LAYERS,
-                **SERVE_SUITE_LAYERS}
+                **SERVE_SUITE_LAYERS, **ARCH_LAYERS}
 TIMED_LAYER = "ffdnet.mid"
 FORWARD_REPS = 10
 
@@ -329,32 +384,41 @@ def main() -> int:
         rows = kernels_phase(torch, K, detail, ops)
 
     paths = {}          # each path's own launch counts
+    lines = {}          # the result lines, by phase
     for name, run in (("lenet5", lenet5_phase), ("ffdnet", ffdnet_phase)):
         K.reset_launch_counts()
         with Phase(name):
             run(torch, detail)
         paths[name] = launch_counts(K)
     with Phase("suites"):
-        suites, paths["suites"] = suites_phase(torch, detail, "cuda",
-                                               smoke=False)
+        lines["suites"], paths["suites"] = suites_phase(torch, detail, "cuda",
+                                                        smoke=False)
     with Phase("serve"):
-        serve, paths["serve"], state = serve_phase(torch, detail, "cuda",
-                                                   full=True, ops=ops)
+        lines["serve"], paths["serve"], state = serve_phase(
+            torch, detail, "cuda", full=True, ops=ops)
     with Phase("spec"):
-        spec, paths["spec"] = spec_phase(torch, detail, "cuda", state)
+        lines["spec"], paths["spec"] = spec_phase(torch, detail, "cuda",
+                                                  state)
     del state
     torch.cuda.empty_cache()
     with Phase("lm_train"):
-        lm_train = lm_train_phase(torch, detail, "cuda", full=True)
+        lines["lm_train"] = lm_train_phase(torch, detail, "cuda", full=True)
+    torch.cuda.empty_cache()
+    with Phase("gemma"):
+        lines["gemma"], gemma_paths = gemma_phase(torch, detail, "cuda",
+                                                  full=True, ops=ops)
+        paths.update(gemma_paths)
+    torch.cuda.empty_cache()
+    with Phase("deepseek"):
+        lines["deepseek"], paths["deepseek"] = deepseek_phase(
+            torch, detail, "cuda", full=True, ops=ops)
 
     with Phase("launches"):
         for name, var, _ in ROWS:
             print(f"launches {name}[{var}]: " + ", ".join(
                 f"{path} {c[(name, var)]}" for path, c in paths.items()))
         for path, counts in paths.items():
-            need = {"suites": SUITE_VARIANTS, "serve": SERVE_VARIANTS,
-                    "spec": SUITE_VARIANTS}.get(path, PATH_VARIANTS)
-            for name, var in need:
+            for name, var in PATH_NEEDS.get(path, PATH_VARIANTS):
                 check(counts[(name, var)] > 0,
                       f"{name}[{var}] was not launched on the {path} path")
         detail["launches"] = {
@@ -370,10 +434,8 @@ def main() -> int:
 
     DETAIL.parent.mkdir(parents=True, exist_ok=True)
     DETAIL.write_text(json.dumps(detail, indent=1))
-    print(json.dumps({"suites": suites}, separators=(",", ":")))
-    print(json.dumps({"serve": serve}, separators=(",", ":")))
-    print(json.dumps({"spec": spec}, separators=(",", ":")))
-    print(json.dumps({"lm_train": lm_train}, separators=(",", ":")))
+    for name, line in lines.items():
+        print(json.dumps({name: line}, separators=(",", ":")))
     print(json.dumps({"kernels": rows}))
     print(smi_line())
     print(json.dumps({"ok": True, "device": {
@@ -435,26 +497,45 @@ def _ms_turns(torch, f, g, reps: int) -> tuple:
 
 
 def _device_ms(torch, calls, reps: int) -> list:
-    """Mean device ms of the port's kernel in ``reps`` runs of each of
-    ``calls``, from one torch.profiler session; each run must launch
-    exactly one. One stream runs the kernels in launch order, so the
-    session's spans fall into the calls' groups in order."""
+    """Mean device ms of the port's kernels in ``reps`` runs of each of
+    ``calls`` (pairs of a function and the launches one run must make:
+    1, or RANK1's column tiles), from one torch.profiler session. One
+    stream runs the kernels in launch order, so the session's spans fall
+    into the calls' groups in order."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        for fn in calls:
+        for fn, _ in calls:
             for _ in range(reps):
                 fn()
         torch.cuda.synchronize()
     spans = sorted((e.time_range.start, e.time_range.end)
                    for e in prof.events()
                    if e.device_type == DeviceType.CUDA and _ours(e.name))
-    check(len(spans) == reps * len(calls),
-          f"{len(spans)} kernel spans in {reps * len(calls)} calls")
-    return [sum(hi - lo for lo, hi in spans[i:i + reps]) / reps / 1e3
-            for i in range(0, len(spans), reps)]
+    want = reps * sum(n for _, n in calls)
+    check(len(spans) == want, f"{len(spans)} kernel spans, {want} launches")
+    out, i = [], 0
+    for _, n in calls:
+        out.append(sum(hi - lo for lo, hi in spans[i:i + reps * n])
+                   / reps / 1e3)
+        i += reps * n
+    return out
+
+
+def _launches_per_call(K, variant: str, k: int, n: int) -> int:
+    """Kernel launches of one call: RANK1 launches once per column tile."""
+    return len(K.rank1_column_tiles(k, n)) if variant == "rank1" else 1
+
+
+def _rank1_operands(K, w):
+    """The operands RANK1's wrapper builds in one call: the K-major exact
+    operand, and the plane operand of each column tile (each dropped
+    before the next, as the wrapper does)."""
+    K.exact_weight_operand(w)
+    for n0, n1 in K.rank1_column_tiles(*w.shape):
+        K.rank1_weight_planes(w[:, n0:n1])
 
 
 def _ours(name: str) -> bool:
@@ -609,15 +690,20 @@ def kernels_phase(torch, K, detail, ops):
               "batched(4,333,150,70)": (4, 333, 150, 70),
               **TC_SEAMS, **CUDA_CORE_SEAMS, **LAYERS, **SUITE_LAYERS,
               **SERVE_LAYERS, **VERIFY_LAYERS, **LM_SUITE_LAYERS,
-              **SERVE_SUITE_LAYERS}
+              **SERVE_SUITE_LAYERS, **ARCH_LAYERS}
     errs = {r[:2]: 0.0 for r in ROWS}
     per_layer, timed = [], []
     for label, (bb, m, k, n) in shapes.items():
         x, w, scale, bias = _operands(torch, gen, bb, m, k, n, dev)
+        arch = label in ARCH_LAYERS
         for name, var, _ in ROWS:
+            if arch and (name, var) not in ARCH_VARIANTS:
+                continue
             designs = (("proposed", "design13") if var == "rank1"
                        and label in TC_SEAMS else ("proposed",))
-            for relu in ((False, True) if "fused" in name else (False,)):
+            relus = (False, True) if "fused" in name and not arch else \
+                (False,)
+            for relu in relus:
                 for design in designs:
                     args = (K, name, var, x, w, scale, bias, relu)
                     got = _call(*args, False, design)
@@ -651,30 +737,34 @@ def kernels_phase(torch, K, detail, ops):
                     operands_ms = _ms(torch,
                                       lambda: K.exact_weight_operand(w), 5)
                 elif var == "rank1":
-                    operands_ms = _ms(torch, lambda: (
-                        K.exact_weight_operand(w),
-                        K.rank1_weight_planes(w)), 5)
+                    operands_ms = _ms(torch, lambda: _rank1_operands(K, w),
+                                      5)
                 bound, by = _bound(name, var, bb * m, k, n, fac, ops)
-                timed.append(kern)
+                timed.append((kern, _launches_per_call(K, var, k, n)))
                 per_layer.append({
                     "layer": label, "entry": name, "variant": var,
                     "shape": [bb, m, k, n], "kernel_ms": kms,
                     "plain_ms": pms, "library_ms": lib,
                     "operands_ms": operands_ms,
                     "bound_ms": bound, "bound_by": by,
-                    **({"planes_ms": _planes_ms(k, n, fac)}
+                    **({"planes_ms": _planes_ms(k, n, fac),
+                        "tiles": len(K.rank1_column_tiles(k, n))}
                        if var == "rank1" else {}),
                     **({"plan": dataclasses.asdict(K.plan(bb * m, k, n))}
                        if var in K.CUDA_CORE else {})})
-        print(f"  {label}: every entry equals its plain version")
+        print(f"  {label}: every "
+              + ("LM route (K2 deficit / stage1, K4) " if arch else "entry ")
+              + "equals its plain version", flush=True)
         del x, w, scale, bias
         torch.cuda.empty_cache()       # the head's plain rank1 takes ~22 GB
     wrap_check(torch, K, dev)
+    tiles_check(torch, K, dev, gen)
     data_rows, data_calls = table_data_calls(torch, K, gen)
     # one profiler session: later sessions in one process may see no
     # device events
     for row, ms in zip(per_layer + data_rows,
-                       _device_ms(torch, timed + data_calls, 5)):
+                       _device_ms(torch, timed + [(c, 1) for c in data_calls],
+                                  5)):
         row["device_ms"] = ms
     detail["table_data"] = data_rows
     for r in data_rows:
@@ -688,8 +778,8 @@ def kernels_phase(torch, K, detail, ops):
               f"device {row['device_ms']:.4f} ms  "
               f"operands {row['operands_ms']}  "
               f"bound {row['bound_ms']:.4f} ms ({row['bound_by']})"
-              + (f"  planes {row['planes_ms']:.4f} ms"
-                 if "planes_ms" in row else "")
+              + (f"  planes {row['planes_ms']:.4f} ms in "
+                 f"{row['tiles']} tiles" if "planes_ms" in row else "")
               + (" plan {bm}x{bn}, k slice {k_slice}, {splits} splits"
                  .format(**row["plan"]) if "plan" in row else ""))
 
@@ -739,6 +829,26 @@ def wrap_check(torch, K, dev):
                 f"fused_matmul[{var}] relu={relu} differs past 2^31")
     print(f"  wrap{WRAP_SHAPE}: sums past 2^31 through {K.plan(m, k, n).splits}"
           " K slices equal the plain versions")
+
+
+def tiles_check(torch, K, dev, gen):
+    """K3 and K4 launched in RANK1's column tiles under a small budget
+    (TILED_LAYER: 24 tiles) equal their plain versions bit for bit."""
+    label, budget = TILED_LAYER
+    bb, m, k, n = SERVE_LAYERS[label]
+    x, w, scale, bias = _operands(torch, gen, bb, m, k, n, dev)
+    tiles = K.rank1_column_tiles(k, n, tile_bytes=budget)
+    check(len(tiles) > 1, f"one tile at {label} under {budget} bytes")
+    x2 = x.reshape(-1, k)
+    check(torch.equal(K.rank1_matmul(x2, w, tile_bytes=budget),
+                      K.rank1_matmul_plain(x2, w)),
+          f"rank1_matmul in {len(tiles)} tiles differs at {label}")
+    check(torch.equal(
+        K.rank1_fused_matmul(x, w, scale, bias, tile_bytes=budget),
+        K.rank1_fused_matmul_plain(x, w, scale, bias)),
+        f"rank1_fused_matmul in {len(tiles)} tiles differs at {label}")
+    print(f"  {label} in {len(tiles)} column tiles of {budget} bytes: K3 "
+          "and K4 equal their plain versions")
 
 
 TABLE_DATA_LAYERS = ("ffdnet.mid", "smollm.decode.q")
@@ -1460,11 +1570,27 @@ class ServeRecorder:
 
 
 def _serve_shapes(cfg) -> list:
-    """(K, N) of every projection launch of one forward, in order."""
+    """(K, N) of every projection launch of one forward, in order: the
+    attention's (GQA q, k, v, o; MLA wq, wdkv, wo), the dense MLP's (gate,
+    up, down; a mixture-of-experts layer's products are float), and the
+    head."""
     d, f, kvd = cfg.d_model, cfg.d_ff, cfg.n_kv_heads * cfg.dh
     qd = cfg.n_heads * cfg.dh
-    layer = [(d, qd), (d, kvd), (d, kvd), (qd, d), (d, f), (d, f), (f, d)]
+    if cfg.kv_lora:
+        layer = [(d, cfg.n_heads * (cfg.qk_nope + cfg.qk_rope)),
+                 (d, cfg.kv_lora + cfg.qk_rope),
+                 (cfg.n_heads * cfg.v_head_dim, d)]
+    else:
+        layer = [(d, qd), (d, kvd), (d, kvd), (qd, d)]
+    if not cfg.n_experts:
+        layer += [(d, f), (d, f), (f, d)]
     return layer * cfg.n_layers + [(d, cfg.padded_vocab)]
+
+
+def _step_launches(K, cfg, variant: str) -> int:
+    """Kernel launches of one decode step under ``variant``."""
+    return sum(_launches_per_call(K, variant, k, n)
+               for k, n in _serve_shapes(cfg))
 
 
 def _serve_bound_ms(cfg, rows: int, variant: str, ops, fac) -> float:
@@ -1628,16 +1754,8 @@ def serve_phase(torch, detail, dev: str, full: bool, ops=None) -> tuple:
 
     tokens = {be: runs[be][0] for be in SPEC_BACKENDS}
     for be in CUDA_BACKENDS:
-        oracle = QM.get_backend(be).oracle
-        (toks, rows), (otoks, orows) = runs[be], runs[oracle]
-        check(toks == otoks, f"{be}: served tokens differ from {oracle}'s")
-        check(rows.keys() == orows.keys(),
-              f"{be}: sampled at other steps than {oracle}")
-        for key, r in rows.items():
-            check(np.array_equal(r, orows[key]),
-                  f"{be}: logits at (rid, step) {key} differ from "
-                  f"{oracle}'s")
-        out[be]["oracle_bitwise_rows"] = len(rows)
+        out[be]["oracle_bitwise_rows"] = _bitwise_runs(
+            "serve", runs, be, QM.get_backend(be).oracle)
     print("  CUDA backends: served tokens and every sampled logits row "
           "bitwise equal to the oracle's; probe alone == batched")
     cfg = dataclasses.replace(cfg0, quant=dataclasses.replace(
@@ -2053,6 +2171,464 @@ def lm_train_phase(torch, detail, dev: str, full: bool) -> dict:
              f"{out['max_memory_gb']:.2f} GiB" if dev == "cuda" else ""),
           flush=True)
     return out
+
+
+# ---------------------------------------------------------------------------
+# Phases 10-11: the windowed, MLA and mixture-of-experts archs
+# ---------------------------------------------------------------------------
+
+ARCH_SEED = 0
+ARCH_STEP_REPS = 3           # timed calls of a fixed-shape decode step
+GEMMA_BACKENDS = ("bf16", "approx_deficit_pallas")
+RING_BACKENDS = ("bf16",) + CUDA_BACKENDS
+RING_DEPTH = 6               # one whole 5:1 local:global group
+# bf16 served rows against a cache-free forward over the whole sequence:
+# both round every activation to bf16, at other GEMM shapes (2 rows a
+# decode step, ~1,050 a forward), so the rows drift by bf16 last places
+# through the six layers; a ring that lost or misplaced keys moves a row
+# by a share of its range. The rows before the window, where no ring has
+# wrapped, give the drift's own size beside it.
+RING_RTOL = 5e-2
+# the oracles' share of the ring workload: the first ORACLE_PREFIX[0]
+# requests, their first ORACLE_PREFIX[1] prompt tokens and
+# ORACLE_PREFIX[2] new tokens (the plain LUT gathers every (x, w) pair of
+# the 27-billion-weight-wide layers: 48 prompt tokens take it ~4 s a
+# backend on the card)
+ORACLE_PREFIX = (2, 48, 6)
+DSV2_DEPTH = 4
+DSV2_BACKENDS = ("bf16", "approx_lut", "approx_stage1") + CUDA_BACKENDS
+DSV2_SPEC = ("approx_deficit_pallas", 4, "approx_stage1_pallas")
+
+
+def ring_workload(vocab: int, full: bool, seed: int = 0):
+    """Long prompts from the seeded ``token_stream`` whose decode wraps the
+    local layers' rings: 4 requests into 2 slots (admission mid-decode),
+    prompts of 1,000-1,020 tokens, 32-48 new tokens each, max_len 1,088
+    (so that the rings hold the whole window of 1,024). Without ``full``
+    the same shape for the reduced gemma3's window of 8: prompts of 5-8
+    tokens, 8-12 new, max_len 24. Returns (requests, slots, max_len)."""
+    from repro_torch.data import synthetic
+    rng = np.random.default_rng(seed + 13)
+    n, slots = 4, 2
+    if full:
+        (lo, hi), (nlo, nhi), max_len = (1000, 1021), (32, 49), 1088
+    else:
+        (lo, hi), (nlo, nhi), max_len = (5, 9), (8, 13), 24
+    stream = synthetic.token_stream(n, hi, vocab, seed=seed)
+    lens, news = rng.integers(lo, hi, n), rng.integers(nlo, nhi, n)
+    return [(rid, stream[rid, :int(lens[rid])], int(news[rid]))
+            for rid in range(n)], slots, max_len
+
+
+def _serve_arch(torch, PE, K, cfg, params, reqs, slots, max_len, dev,
+                launches, **kw):
+    """Serve ``reqs`` on a fresh engine, counting the kernel launches into
+    ``launches``. Returns (engine, {rid: tokens}, recorder, stats, peak
+    device GiB of the serving)."""
+    eng = PE.Engine(cfg, params, slots=slots, max_len=max_len, device=dev,
+                    **kw)
+    for rid, prompt, max_new in reqs:
+        eng.submit(PE.ServeRequest(rid=rid, prompt=prompt, max_new=max_new))
+    if dev == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    with ServeRecorder(torch, PE, eng, dev) as rec:
+        stats = eng.run()
+    for key, n in launch_counts(K).items():
+        launches[key] += n
+    toks = {r.rid: list(r.output) for r in eng.completed}
+    label = f"{cfg.name} {cfg.quant.backend}"
+    check(len(toks) == len(reqs) and all(toks.values()),
+          f"{label}: not every request was served")
+    check(all(np.isfinite(r).all() and r.shape == (cfg.padded_vocab,)
+              for r in rec.rows.values()), f"{label}: bad logits rows")
+    peak = (torch.cuda.max_memory_allocated() / 2 ** 30 if dev == "cuda"
+            else None)
+    return eng, toks, rec, stats, peak
+
+
+def _serving_row(rec, stats, peak, reqs) -> dict:
+    return {"decode_step_ms_median": statistics.median(rec.step_ms),
+            "ms_per_token": sum(rec.step_ms) / max(
+                1, stats["new_tokens"] - len(reqs)),
+            "decode_steps": stats["decode_steps"],
+            "ttft_ms_mean": stats["ttft_ms_mean"],
+            "tok_per_s": stats["tok_per_s"],
+            "new_tokens": stats["new_tokens"], "waves": stats["waves"],
+            "prefix_hit_rate": stats["prefix_hit_rate"],
+            "peak_memory_gb": peak}
+
+
+def _arch_step(torch, K, eng, params, cfg, pos, backend, ops, fac) -> dict:
+    """A fixed-shape decode step of ``eng``'s pool at positions ``pos``:
+    ARCH_STEP_REPS host-timed calls, one profiled (busy, port kernels,
+    idle share), its kernel launches against the config's projections and
+    tiles, and, for a CUDA backend, the bound of its launches."""
+    dev = "cuda"
+    tok = torch.arange(1, eng.slots + 1, device=dev)[:, None]
+    pos = torch.as_tensor(pos, device=dev)
+
+    def step():
+        with torch.no_grad():
+            eng._decode(params, eng.pool, tok, pos)
+
+    step()
+    ms = _forward_ms(torch, step, ARCH_STEP_REPS)
+    K.reset_launch_counts()
+    prof = _profile_ms(torch, step)
+    n = _launches(K)
+    med = statistics.median(ms)
+    row = {"fixed_step_ms": {"median": med, "min": min(ms), "max": max(ms),
+                             "n": ARCH_STEP_REPS}, **prof,
+           "idle_share": 1 - prof["device_busy_ms"] / med}
+    if backend in CUDA_BACKENDS:
+        var = SERVE_KERNEL[backend]
+        check(n == _step_launches(K, cfg, var),
+              f"{cfg.name} {backend}: {n} launches in one decode step, "
+              f"{_step_launches(K, cfg, var)} expected")
+        row["launches_per_step"] = n
+        row["step_bound_ms"] = _serve_bound_ms(cfg, eng.slots, var, ops, fac)
+    return row
+
+
+def _print_arch(label: str, be: str, row: dict) -> None:
+    print(f"  {label} {be:22s} decode step median "
+          f"{row['decode_step_ms_median']:.3f} ms ({row['decode_steps']} "
+          f"steps, {row['new_tokens']} tokens, TTFT mean "
+          f"{row['ttft_ms_mean']:.1f} ms), peak "
+          + (f"{row['peak_memory_gb']:.2f} GiB" if row["peak_memory_gb"]
+             is not None else "n/a")
+          + (f"; fixed step {row['fixed_step_ms']['median']:.3f} ms, busy "
+             f"{row['device_busy_ms']:.3f}, port kernels "
+             f"{row['kernels_ms']:.3f}, idle {row['idle_share']:.2f}"
+             if "fixed_step_ms" in row else "")
+          + (f", {row['launches_per_step']} launches, bound "
+             f"{row['step_bound_ms']:.3f} ms" if "step_bound_ms" in row
+             else ""), flush=True)
+
+
+def _init_arch(torch, TLM, cfg, dev: str) -> tuple:
+    """Seeded random parameters on ``dev`` (on the card its generator
+    draws the large leaves, ``nn/module.init_params``), with the seconds
+    and the peak device GiB of the draw."""
+    if dev == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = TLM.init(cfg, torch.Generator().manual_seed(ARCH_SEED),
+                      device=dev)
+    _sync(torch, dev)
+    return params, {
+        "init_s": time.perf_counter() - t0,
+        "init_peak_gb": (torch.cuda.max_memory_allocated() / 2 ** 30
+                         if dev == "cuda" else None)}
+
+
+def _bitwise_runs(label, runs, a, b):
+    """Tokens and every sampled logits row of run ``a`` equal run ``b``'s."""
+    (ta, ra), (tb, rb) = runs[a], runs[b]
+    check(ta == tb, f"{label}: {a}'s tokens differ from {b}'s")
+    check(ra.keys() == rb.keys(), f"{label}: {a} sampled at other steps "
+          f"than {b}")
+    for key, r in ra.items():
+        check(np.array_equal(r, rb[key]),
+              f"{label}: {a}'s logits at (rid, step) {key} differ from "
+              f"{b}'s")
+    return len(ra)
+
+
+def gemma_phase(torch, detail, dev: str, full: bool, ops=None) -> tuple:
+    """gemma3-27b (see the module docstring, phase 10). ``full``: the
+    published config, 62 layers from seed 0 (27.0 B bf16 parameters),
+    then its first RING_DEPTH layers; without it the reduced gemma3 (one
+    5:1 group and a remainder group of 2) on the CPU, with a window of 64
+    for the whole model (longer than the smoke workload's cache, as 1,024
+    is than the full one's) and of 8 for the ring workload. Returns
+    the gemma line and the kernel launches of the 'gemma' (full depth)
+    and 'gemma_ring' paths."""
+    import dataclasses
+    from repro_torch.configs import registry
+    from repro_torch.core import factor as F
+    from repro_torch.kernels import approx_matmul as K
+    from repro_torch.models import transformer_lm as TLM
+    from repro_torch.nn.module import n_params
+    from repro_torch.quant.quantize import for_lm
+    from repro_torch.serve import engine as PE
+
+    fac = F.factorize("proposed")
+    if full:
+        cfg0 = registry.get("gemma3-27b")
+        check((cfg0.n_layers, cfg0.d_model, cfg0.n_heads, cfg0.n_kv_heads,
+               cfg0.d_ff, cfg0.vocab, cfg0.local_window, cfg0.local_ratio)
+              == (62, 5376, 32, 16, 21504, 262144, 1024, 5)
+              and n_params(TLM.descs(cfg0)) == 27_008_319_744,
+              f"unexpected gemma3-27b config {cfg0}")
+    else:
+        cfg0 = registry.reduced("gemma3-27b", n_layers=8, local_window=64,
+                                param_dtype=torch.bfloat16)
+    check(cfg0.blocks()[-1][1] == ("global", "global"),
+          "no remainder group in the block program")
+    params, init = _init_arch(torch, TLM, cfg0, dev)
+    out = {"config": {"arch": cfg0.name, "n_layers": cfg0.n_layers,
+                      "blocks": cfg0.blocks(), "d_model": cfg0.d_model,
+                      "vocab": cfg0.vocab, "window": cfg0.local_window,
+                      "params": n_params(TLM.descs(cfg0)),
+                      "param_dtype": str(cfg0.param_dtype),
+                      "seed": ARCH_SEED}, **init}
+    print(f"  gemma3 {out['config']['params']:,} parameters drawn in "
+          f"{init['init_s']:.1f} s (peak {init['init_peak_gb']} GiB)",
+          flush=True)
+    paths = {p: {key: 0 for key in launch_counts(K)}
+             for p in ("gemma", "gemma_ring")}
+
+    # --- the whole model on the serve suite's workload: unpaged, exact
+    # prompt lengths (rings longer than max_len: the window masks only)
+    reqs, slots, max_len = serve_workload(cfg0.vocab, smoke=not full, seed=0)
+    full_toks, out["full"] = {}, {}
+    for be in GEMMA_BACKENDS:
+        cfg = dataclasses.replace(cfg0, quant=for_lm(be))
+        eng, toks, rec, stats, peak = _serve_arch(
+            torch, PE, K, cfg, params, reqs, slots, max_len, dev,
+            paths["gemma"])
+        check(eng.prefix is None, "gemma3 served with the prefix cache")
+        row = _serving_row(rec, stats, peak, reqs)
+        if dev == "cuda":
+            row.update(_arch_step(torch, K, eng, params, cfg,
+                                  [40, 50, 60, 70], be, ops, fac))
+        full_toks[be] = toks
+        out["full"][be] = row
+        _print_arch(f"gemma3 L{cfg0.n_layers}", be, row)
+        del eng, rec        # the recorder holds the engine, and its params
+    same = sum(a == b for rid in full_toks["bf16"] for a, b in zip(
+        full_toks["bf16"][rid], full_toks[GEMMA_BACKENDS[1]][rid]))
+    out["full"]["deficit_tokens_equal_bf16"] = same / sum(
+        len(t) for t in full_toks["bf16"].values())
+
+    # --- the first RING_DEPTH layers on the ring workload
+    cfg6 = dataclasses.replace(cfg0, n_layers=RING_DEPTH,
+                               local_window=1024 if full else 8)
+    check(cfg6.blocks() == [(1, ("local",) * 5 + ("global",))],
+          f"unexpected depth-{RING_DEPTH} program {cfg6.blocks()}")
+    params = {"embed": params["embed"], "final_ln": params["final_ln"],
+              "blocks": [TLM.map_leaves(lambda t: t[:1].clone(),
+                                        params["blocks"][0])]}
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    reqs, slots, max_len = ring_workload(cfg0.vocab, full)
+    window = cfg6.local_window
+    runs, out["ring"] = {}, {}
+    for be in RING_BACKENDS:
+        cfg = dataclasses.replace(cfg6, quant=for_lm(be))
+        eng, toks, rec, stats, peak = _serve_arch(
+            torch, PE, K, cfg, params, reqs, slots, max_len, dev,
+            paths["gemma_ring"])
+        check(eng.pool["blocks"][0]["k0_local"]["k"].shape[2] == window,
+              "the local layers' caches are not rings of the window")
+        check(stats["waves"] >= 2, f"ring {be}: no mid-decode admission")
+        last = max(len(p) + len(toks[rid]) - 2 for rid, p, _ in reqs)
+        check(last >= window, f"ring {be}: decode ended at position {last},"
+              f" before the ring wraps at {window}")
+        runs[be] = (toks, rec.rows)
+        row = _serving_row(rec, stats, peak, reqs)
+        row["last_position"] = last
+        if dev == "cuda":
+            row.update(_arch_step(
+                torch, K, eng, params, cfg,
+                [window + 7 + 11 * i for i in range(slots)], be, ops, fac))
+        out["ring"][be] = row
+        _print_arch(f"gemma3 L{RING_DEPTH} ring", be, row)
+        del eng, rec
+    n = _bitwise_runs("ring", runs, "approx_deficit_pallas",
+                      "approx_rank1_pallas")
+    out["ring"]["deficit_rank1_bitwise_rows"] = n
+    print(f"  ring: approx_deficit_pallas and approx_rank1_pallas served "
+          f"tokens and all {n} sampled logits rows bitwise equal")
+
+    # the oracles, on the workload's first requests, cut short
+    n_req, n_prompt, n_new = ORACLE_PREFIX if full else (2, 4, 4)
+    short = [(rid, p[:n_prompt], n_new) for rid, p, _ in reqs[:n_req]]
+    oruns, t0 = {}, time.perf_counter()
+    for be in ("approx_lut", "approx_stage1") + CUDA_BACKENDS:
+        cfg = dataclasses.replace(cfg6, quant=for_lm(be))
+        t1 = time.perf_counter()
+        _, toks, rec, _, _ = _serve_arch(torch, PE, K, cfg, params, short,
+                                         slots, max_len, dev,
+                                         paths["gemma_ring"])
+        oruns[be] = (toks, rec.rows)
+        out["ring"].setdefault("oracle_prefix_s", {})[be] = \
+            time.perf_counter() - t1
+    for be in CUDA_BACKENDS:
+        oracle = "approx_stage1" if be == "approx_stage1_pallas" else \
+            "approx_lut"
+        n = _bitwise_runs("ring prefix", oruns, be, oracle)
+        out["ring"].setdefault("oracle_bitwise_rows", {})[be] = n
+    out["ring"]["oracle_prefix"] = {"requests": n_req, "prompt": n_prompt,
+                                    "new": n_new}
+    print(f"  ring prefix ({n_req} requests, {n_prompt} prompt tokens, "
+          f"{n_new} new; {time.perf_counter() - t0:.1f} s): each CUDA "
+          "backend's tokens and logits rows bitwise equal to its oracle's")
+
+    # the ring itself: bf16 rows against the cache-free forward
+    cfg = dataclasses.replace(cfg6, quant=for_lm("bf16"))
+    toks, rows = runs["bf16"]
+    worst = {"wrapped": 0.0, "before": 0.0}
+    n_wrapped = 0
+    with torch.no_grad():
+        for rid, prompt, _ in reqs:
+            seq = np.concatenate([prompt, np.asarray(toks[rid][:-1],
+                                                     np.int32)])
+            x = TLM.embed_tokens(params, torch.as_tensor(
+                seq[None], dtype=torch.int64, device=dev), cfg)
+            h, _, _ = TLM.backbone(params, x, cfg)
+            pos = [len(prompt) - 1 + j for j in range(len(toks[rid]))]
+            ref = TLM.lm_logits(params, h[:, pos], cfg)[0].float().cpu()
+            for j, p in enumerate(pos):
+                want = ref[j].numpy()
+                err = float(np.abs(rows[(rid, j)] - want).max()
+                            / max(float(np.ptp(want)), 1e-30))
+                kind = "wrapped" if p >= window else "before"
+                worst[kind] = max(worst[kind], err)
+                n_wrapped += p >= window
+            del h, x
+    check(n_wrapped > 0, "no served row past the window")
+    check(worst["wrapped"] <= RING_RTOL,
+          f"ring: served bf16 rows past the window differ from the "
+          f"cache-free forward by {worst['wrapped']:.3g} of their range "
+          f"(tolerance {RING_RTOL})")
+    out["ring"]["bf16_vs_cache_free"] = {
+        "rows_past_window": n_wrapped, "max_over_range": worst,
+        "rtol": RING_RTOL}
+    print(f"  ring: {n_wrapped} bf16 rows past position {window} within "
+          f"{worst['wrapped']:.3g} of their range of the cache-free "
+          f"forward (tolerance {RING_RTOL}; rows before the window: "
+          f"{worst['before']:.3g})", flush=True)
+    out["ring"]["config"] = {"n_layers": RING_DEPTH, "slots": slots,
+                             "max_len": max_len, "requests": len(reqs),
+                             "prompt_lens": [len(p) for _, p, _ in reqs],
+                             "max_new": [m for _, _, m in reqs]}
+    detail["gemma"] = out
+    return out, paths
+
+
+def _verify_rows(torch, TLM, params, cfg, dev: str, k: int) -> dict:
+    """One verify pass of a (4, k) window against k sequential decode
+    steps from the same prefilled cache (greedy tokens of 4 random
+    6-token prompts): whether each logits row and the cache writes are
+    bitwise equal."""
+    rng = np.random.default_rng(3)
+    prompt = torch.as_tensor(rng.integers(0, cfg.vocab, (4, 6)), device=dev)
+    pos = torch.full((4,), 6, device=dev)
+    with torch.no_grad():
+        cache = TLM.init_cache(cfg, 4, 64, torch.float32, dev)
+        logits, cache = TLM.prefill(params, prompt, cfg, cache)
+        vcache = TLM.map_leaves(lambda t: t.clone(), cache)
+        toks, seq = [logits[:, -1].argmax(-1)], []
+        for j in range(k):
+            lg, cache = TLM.decode_step(params, toks[-1][:, None], pos + j,
+                                        cfg, cache)
+            seq.append(lg[:, 0])
+            toks.append(lg[:, 0].argmax(-1))
+        vlg, vcache = TLM.verify_step(params, torch.stack(toks[:k], 1), pos,
+                                      cfg, vcache)
+    a, b = [], []
+    TLM.map_leaves(a.append, vcache)
+    TLM.map_leaves(b.append, cache)
+    return {"rows_bitwise": [bool(torch.equal(vlg[:, j], seq[j]))
+                             for j in range(k)],
+            "cache_bitwise": all(bool(torch.equal(x, y))
+                                 for x, y in zip(a, b))}
+
+
+def deepseek_phase(torch, detail, dev: str, full: bool, ops=None) -> tuple:
+    """deepseek-v2-236b (see the module docstring, phase 11): the
+    published widths at depth DSV2_DEPTH (seed 0, bf16) when ``full``,
+    else the reduced config on the CPU, on the serve suite's workload with
+    the prefix cache; each CUDA backend bitwise to its oracle, and one
+    speculative serving equal to sequential decode. Returns the deepseek
+    line and the path's kernel launches."""
+    import dataclasses
+    from repro_torch.configs import registry
+    from repro_torch.core import factor as F
+    from repro_torch.kernels import approx_matmul as K
+    from repro_torch.models import transformer_lm as TLM
+    from repro_torch.nn.module import n_params
+    from repro_torch.quant import matmul as QM
+    from repro_torch.quant.quantize import for_lm
+    from repro_torch.serve import engine as PE
+    from repro_torch.serve.speculative import SpecConfig
+
+    fac = F.factorize("proposed")
+    if full:
+        cfg0 = registry.get("deepseek-v2-236b", n_layers=DSV2_DEPTH)
+        check((cfg0.d_model, cfg0.n_heads, cfg0.kv_lora, cfg0.n_experts,
+               cfg0.top_k, cfg0.n_shared, cfg0.moe_d_ff, cfg0.vocab) ==
+              (5120, 128, 512, 160, 6, 2, 1536, 102400),
+              f"unexpected deepseek-v2-236b config {cfg0}")
+    else:
+        cfg0 = registry.reduced("deepseek-v2-236b",
+                                param_dtype=torch.bfloat16)
+    params, init = _init_arch(torch, TLM, cfg0, dev)
+    out = {"config": {"arch": cfg0.name, "n_layers": cfg0.n_layers,
+                      "d_model": cfg0.d_model, "vocab": cfg0.vocab,
+                      "n_experts": cfg0.n_experts, "top_k": cfg0.top_k,
+                      "params": n_params(TLM.descs(cfg0)),
+                      "param_dtype": str(cfg0.param_dtype),
+                      "seed": ARCH_SEED}, **init}
+    print(f"  deepseek-v2 {out['config']['params']:,} parameters drawn in "
+          f"{init['init_s']:.1f} s (peak {init['init_peak_gb']} GiB)",
+          flush=True)
+    launches = {key: 0 for key in launch_counts(K)}
+    reqs, slots, max_len = serve_workload(cfg0.vocab, smoke=not full, seed=0)
+    runs = {}
+    for be in DSV2_BACKENDS:
+        cfg = dataclasses.replace(cfg0, quant=for_lm(be))
+        eng, toks, rec, stats, peak = _serve_arch(
+            torch, PE, K, cfg, params, reqs, slots, max_len, dev, launches)
+        check(eng.prefix is not None and stats["prefix_hit_rate"] > 0,
+              f"deepseek-v2 {be}: no prefix-cache hit")
+        check(stats["waves"] >= 2, f"deepseek-v2 {be}: no mid-decode "
+              "admission")
+        runs[be] = (toks, rec.rows)
+        row = _serving_row(rec, stats, peak, reqs)
+        if dev == "cuda" and be not in ("approx_lut", "approx_stage1"):
+            row.update(_arch_step(torch, K, eng, params, cfg,
+                                  [40, 50, 60, 70], be, ops, fac))
+        out[be] = row
+        _print_arch(f"deepseek-v2 L{cfg0.n_layers}", be, row)
+        del eng, rec
+    for be in CUDA_BACKENDS:
+        out[be]["oracle_bitwise_rows"] = _bitwise_runs(
+            "deepseek-v2", runs, be, QM.get_backend(be).oracle)
+    print("  deepseek-v2: each CUDA backend's served tokens and every "
+          "sampled logits row bitwise equal to its oracle's")
+    target, k, draft = DSV2_SPEC
+    cfg = dataclasses.replace(cfg0, quant=for_lm(target))
+    probe = _verify_rows(torch, TLM, params, cfg, dev, k)
+    check(all(probe["rows_bitwise"]) and probe["cache_bitwise"],
+          f"deepseek-v2 {target}: verify rows or cache writes differ from "
+          f"sequential decode's: {probe}")
+    _, toks, rec, stats, _ = _serve_arch(
+        torch, PE, K, cfg, params, reqs, slots, max_len, dev, launches,
+        spec=SpecConfig(k=k, draft_backend=draft))
+    diff = [(rid, next(i for i, (a, b) in enumerate(zip(t, runs[target][0][
+        rid])) if a != b) if len(t) == len(runs[target][0][rid]) else -1)
+        for rid, t in toks.items() if t != runs[target][0][rid]]
+    check(not diff, "deepseek-v2: speculative tokens differ from "
+          f"sequential decode's at (rid, index) {diff}")
+    check(stats["spec_passes"] > 0, "deepseek-v2: no speculative pass")
+    out["spec"] = {"target": target, "k": k, "draft": draft,
+                   "tokens_equal_sequential": True, "verify_probe": probe,
+                   "accept_mean": stats["spec_accept_mean"],
+                   "accept_hist": stats["spec_accept_hist"],
+                   "passes": stats["spec_passes"]}
+    print(f"  deepseek-v2 spec (K={k}, {draft} draft, {target} target): "
+          f"verify rows and cache writes bitwise == {k} sequential decode "
+          f"steps; tokens == sequential, {stats['spec_passes']} passes, "
+          "accepted "
+          f"drafts/pass {stats['spec_accept_mean']:.3f}", flush=True)
+    out["serving"] = {"slots": slots, "max_len": max_len,
+                      "requests": len(reqs), "cache_dtype": "float32"}
+    detail["deepseek"] = out
+    return out, launches
 
 
 if __name__ == "__main__":

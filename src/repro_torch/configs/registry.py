@@ -4,7 +4,8 @@ after the JAX package's ``repro.configs.registry``.
 ``get(name)`` returns the full published config (vocab padded to a
 multiple of 256; logits are masked back to the true vocab). ``reduced(name)``
 returns a tiny same-family config for CPU tests (the same code paths).
-The port runs the dense global-attention families; every other name of
+The port runs the dense global-attention families, gemma3's windowed
+ring buffer and the MLA / mixture-of-experts families; every other name of
 ``ARCH_NAMES`` raises ``NotImplementedError`` naming its ROADMAP item.
 """
 from __future__ import annotations
@@ -20,6 +21,9 @@ _MODULES = {
     "smollm-135m": "smollm_135m",
     "deepseek-coder-33b": "deepseek_coder_33b",
     "qwen1.5-32b": "qwen15_32b",
+    "gemma3-27b": "gemma3_27b",
+    "kimi-k2-1t-a32b": "kimi_k2_1t",
+    "deepseek-v2-236b": "deepseek_v2_236b",
 }
 
 # the JAX package's other configurations, and the ROADMAP item that ports
@@ -27,12 +31,6 @@ _MODULES = {
 NOT_PORTED = {
     "hymba-1.5b": "SSM layers: ROADMAP.md queue A, item 18",
     "llama-3.2-vision-11b": "cross-attention: ROADMAP.md queue A, item 19",
-    "gemma3-27b": "windowed ring-buffer attention: ROADMAP.md queue A, "
-                  "item 16",
-    "kimi-k2-1t-a32b": "mixture-of-experts layers: ROADMAP.md queue A, "
-                       "item 17",
-    "deepseek-v2-236b": "MLA attention and mixture-of-experts layers: "
-                        "ROADMAP.md queue A, item 17",
     "rwkv6-3b": "SSM layers: ROADMAP.md queue A, item 18",
     "musicgen-large": "multi-codebook heads: ROADMAP.md queue A, item 19",
 }
@@ -63,17 +61,25 @@ def get(name: str, **overrides) -> ArchConfig:
 
 
 def reduced(name: str, **overrides) -> ArchConfig:
-    """Tiny same-family config: the same code paths on the CPU. Only the
-    dense global-attention families get here (``get`` refuses the rest);
-    the MLA fields are set as the reference's ``reduced`` sets them."""
+    """Tiny same-family config: the same code paths on the CPU, sized as
+    the reference's ``reduced`` sizes them (one whole 5:1 group for
+    gemma3, 8 experts, a window of 8, a 32-wide MLA latent). ``get``
+    refuses the names the port does not run."""
     cfg = get(name)
+    pattern = cfg.local_ratio + 1 if cfg.local_ratio else 0
     heads = 4
     kv = (max(1, heads // (cfg.n_heads // cfg.n_kv_heads))
           if cfg.n_kv_heads < cfg.n_heads else heads)
     small = dict(
-        n_layers=2, d_model=128, n_heads=heads, n_kv_heads=kv,
-        d_ff=256, vocab=512, vocab_pad=512, head_dim=32,
+        n_layers=max(2, pattern), d_model=128, n_heads=heads,
+        n_kv_heads=kv, d_ff=256, vocab=512, vocab_pad=512, head_dim=32,
+        n_experts=8 if cfg.n_experts else 0,
+        top_k=min(2, cfg.top_k) if cfg.top_k else 0,
+        n_shared=min(1, cfg.n_shared),
+        moe_d_ff=64 if cfg.moe_d_ff else 0,
+        kv_lora=32 if cfg.kv_lora else 0,
         qk_nope=32, qk_rope=16, v_head_dim=32,
+        local_window=8 if cfg.local_window else 0,
         param_dtype=torch.float32, remat=False,
     )
     small.update(overrides)

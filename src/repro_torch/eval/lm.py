@@ -82,7 +82,7 @@ def eval_point(params, cfg, quant, tokens, labels):
     cfg_q = dataclasses.replace(cfg, quant=quant)
     with torch.inference_mode():
         x = TLM.embed_tokens(params, tokens, cfg_q)
-        h, _ = TLM.backbone(params, x, cfg_q, training=False)
+        h, _, _ = TLM.backbone(params, x, cfg_q, training=False)
         lg = TLM.lm_logits(params, h, cfg_q)
         loss = L.softmax_cross_entropy(lg, labels, cfg_q.vocab)
     return lg[..., :cfg_q.vocab].to(torch.float32), float(loss)

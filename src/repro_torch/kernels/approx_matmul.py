@@ -31,6 +31,11 @@ The tensor-core kernel takes its B operands K-major;
 ``exact_weight_operand`` and ``rank1_weight_planes`` build them per call
 with plain torch ops, as the reference gathers its features per call
 outside its ``pallas_call``. The kernel pads them to its tiles itself.
+RANK1 launches once per column tile of at most RANK1_TILE_BYTES of
+operands (``rank1_column_tiles``: 104 bytes of planes a weight would be
+146 GB at gemma3's 262,144-wide head), and each tile counts as a launch;
+the plain versions bound their intermediates the same way
+(``chunk_rows``).
 """
 from __future__ import annotations
 
@@ -330,30 +335,68 @@ def _launch(kernel: str, design: str, x: torch.Tensor, w: torch.Tensor,
                            f"{err}")
 
 
+RANK1_TILE_BYTES = 4 << 30    # RANK1's per-launch weight operand budget
+
+
+def rank1_column_tiles(k: int, n: int, design: str = "proposed",
+                       tile_bytes: Optional[int] = None):
+    """Column ranges [n0, n1) of RANK1's launches over an N-wide weight:
+    each tile's plane operand (nd * Kp * Rp bytes a column) and the int64
+    gather index that builds it (Kp * 8 bytes a column) stay within
+    ``tile_bytes`` (RANK1_TILE_BYTES). A tile holds a multiple of 16
+    columns (16 at least), so that every tile's slice of the K-major
+    exact operand starts 16-byte aligned. Output columns are independent,
+    so the tiles change no result."""
+    fac = F.factorize(design)
+    kp = -(-k // 4) * 4
+    per_col = kp * (8 + fac.n_digits * rank1_r_pad(fac.R))
+    cols = max(16, (tile_bytes or RANK1_TILE_BYTES) // per_col // 16 * 16)
+    return [(c, min(c + cols, n)) for c in range(0, n, cols)]
+
+
 def _launch_tc(body: str, design: str, x: torch.Tensor, w: torch.Tensor,
                out: torch.Tensor, scale: Optional[torch.Tensor] = None,
-               bias: Optional[torch.Tensor] = None, relu: bool = False):
+               bias: Optional[torch.Tensor] = None, relu: bool = False,
+               tile_bytes: Optional[int] = None) -> int:
+    """Launch the tensor-core kernel; RANK1 once per column tile
+    (``rank1_column_tiles``), each into its own output block, which is
+    then copied into ``out``. Returns the number of launches."""
     rows, k = x.numel() // x.shape[-1], x.shape[-1]
     n = w.shape[1]
-    w_op, planes, u = exact_weight_operand(w), None, None
+    w_op = exact_weight_operand(w)
+    tiles = ([(0, n)] if body != "rank1" else
+             rank1_column_tiles(k, n, design, tile_bytes))
+    u = table = None
     if body == "rank1":
         u, table = _rank1_tables(design, str(w.device))
-        planes = rank1_weight_planes(w, design)
-    nd, rp, f_ld = ((0, 0, 0) if u is None else
-                    (table.shape[0], u.shape[1], planes.shape[1]))
-    with torch.cuda.device(x.device):
-        err = _lib().tc_mm_launch(
-            _TC_BODY[body], _ptr(x), _ptr(w_op), _ptr(planes), _ptr(u),
-            rows, k, n, nd, rp, f_ld, _ptr(scale), _ptr(bias),
-            _out_kind(scale, relu), _ptr(out),
-            torch.cuda.current_stream(x.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"tc_mm_launch({body}) failed: CUDA error {err}")
+    for n0, n1 in tiles:
+        whole = (n0, n1) == (0, n)
+        o = out if whole else torch.empty((*out.shape[:-1], n1 - n0),
+                                          dtype=out.dtype, device=out.device)
+        sc = scale if scale is None or whole else \
+            scale[:, n0:n1].contiguous()
+        bi = bias if bias is None or whole else bias[:, n0:n1].contiguous()
+        planes = (None if u is None else
+                  rank1_weight_planes(w[:, n0:n1], design))
+        nd, rp, f_ld = ((0, 0, 0) if u is None else
+                        (table.shape[0], u.shape[1], planes.shape[1]))
+        with torch.cuda.device(x.device):
+            err = _lib().tc_mm_launch(
+                _TC_BODY[body], _ptr(x), _ptr(w_op[n0:n1]), _ptr(planes),
+                _ptr(u), rows, k, n1 - n0, nd, rp, f_ld, _ptr(sc), _ptr(bi),
+                _out_kind(scale, relu), _ptr(o),
+                torch.cuda.current_stream(x.device).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"tc_mm_launch({body}) failed: CUDA error "
+                               f"{err}")
+        if not whole:
+            out[..., n0:n1] = o
+    return len(tiles)
 
 
-def _count(fn, variant: str):
-    fn.launches += 1
-    fn.variant_launches[variant] += 1
+def _count(fn, variant: str, n: int = 1):
+    fn.launches += n
+    fn.variant_launches[variant] += n
 
 
 def reset_launch_counts():
@@ -424,28 +467,56 @@ def _check_design(design: str):
 # Plain versions (PyTorch; run on the CPU and, for comparisons, on the card)
 # ---------------------------------------------------------------------------
 
-def chunk_rows(k: int, n: int, device: torch.device) -> int:
-    """Rows per chunk so that an (rows, K, N) int32 intermediate stays near
-    4 MB on the CPU and 32 MB on the card."""
-    budget = 1 << 20 if device.type == "cpu" else 1 << 23
-    return max(1, budget // max(1, k * n))
+def chunk_rows(k: int, n: int, device: torch.device,
+               budget: Optional[int] = None) -> Tuple[int, int]:
+    """(rows, cols) per chunk of an (M, K) x (K, N) product whose plain
+    version builds an (rows, K, cols) intermediate: all N columns and as
+    many rows as keep it under ``budget`` elements (default 2^20 on the
+    CPU, 2^23 on the card); past one row's K * N, one row and N in tiles
+    of ``budget // K`` columns. Output columns are independent, so the
+    tiling changes no result."""
+    if budget is None:
+        budget = 1 << 20 if device.type == "cpu" else 1 << 23
+    if k * n <= budget:
+        return max(1, budget // max(1, k * n)), n
+    return 1, max(1, budget // max(1, k))
 
 
-def _deficit_corr(x32, w32, design):
-    """sum_k sign(x) sign(w) deficit_sum(|x|, |w|), chunked over rows."""
+def _tiled(m: int, n: int, rows: int, cols: int, fn, dtype, device):
+    """Concatenate ``fn(r0, r1, c0, c1)`` over (rows, cols) tiles of an
+    (m, n) result."""
+    if m == 0:
+        return torch.zeros((0, n), dtype=dtype, device=device)
+    return torch.cat([
+        torch.cat([fn(r0, min(r0 + rows, m), c0, min(c0 + cols, n))
+                   for c0 in range(0, n, cols)], dim=1)
+        for r0 in range(0, m, rows)])
+
+
+@functools.lru_cache(maxsize=64)
+def _deficit_flat(design: str, device: str) -> torch.Tensor:
+    """deficit_sum(|x|, |w|) for magnitudes in [0, 128], flat at
+    |x| * 129 + |w|, int32 on ``device``."""
+    return correction_matrix("deficit", design).reshape(-1).to(device)
+
+
+def _deficit_corr(x32, w32, design, budget: Optional[int] = None):
+    """sum_k sign(x) sign(w) deficit_sum(|x|, |w|), the deficit sums read
+    from their table over the 129 x 129 magnitude pairs, in (rows, cols)
+    chunks (``chunk_rows``)."""
     m, k = x32.shape
     n = w32.shape[1]
-    wmag, wsgn = w32.abs()[None], w32.sign()[None]
-    out = []
-    step = chunk_rows(k, n, x32.device)
-    for r0 in range(0, m, step):
-        xc = x32[r0:r0 + step, :, None]
-        d = D.deficit_sum(xc.abs(), wmag, design)
-        s = xc.sign() * wsgn
-        out.append((d * s).sum(dim=1, dtype=torch.int64))
-    if not out:
-        return torch.zeros((0, n), dtype=torch.int64, device=x32.device)
-    return torch.cat(out)
+    rows, cols = chunk_rows(k, n, x32.device, budget)
+    table = _deficit_flat(design, str(x32.device))
+    xm, xs = x32.abs().to(torch.int64) * TABLE_ROWS, x32.sign()
+    wm, ws = w32.abs().to(torch.int64), w32.sign()
+
+    def part(r0, r1, c0, c1):
+        d = torch.take(table, xm[r0:r1, :, None] + wm[None, :, c0:c1])
+        s = xs[r0:r1, :, None] * ws[None, :, c0:c1]
+        return (d * s).sum(dim=1, dtype=torch.int64)
+
+    return _tiled(m, n, rows, cols, part, torch.int64, x32.device)
 
 
 def window_and(mag, start):
@@ -480,25 +551,37 @@ def approx_matmul_plain(x: torch.Tensor, w: torch.Tensor,
     return (int8_matmul(x, w).to(torch.int64) - corr).to(torch.int32)
 
 
+RANK1_PLAIN_BUDGET = 1 << 29   # float64 elements of one factor tile
+
+
 def rank1_matmul_plain(x: torch.Tensor, w: torch.Tensor,
-                       design: str = "proposed") -> torch.Tensor:
+                       design: str = "proposed",
+                       budget: Optional[int] = None) -> torch.Tensor:
     """Plain version of K3: exact dot minus the factored correction
     sum_{k,r} u[x & 0xFF, r] v[r, w & 0xFF], in float64 (exact: every
-    partial sum is an integer far below 2^53)."""
+    partial sum is an integer far below 2^53). The (K * R, N) factor
+    operand is built in N tiles of at most ``budget`` elements
+    (RANK1_PLAIN_BUDGET), the x side in row chunks."""
     fac = F.factorize(design)
     dev = x.device
     u = torch.as_tensor(fac.u_signed, device=dev).to(torch.float64)
     v = torch.as_tensor(fac.v_signed, device=dev).to(torch.float64)
     m, k = x.shape
     n = w.shape[1]
+    kr = k * fac.R
     iw = w.to(torch.int64) & 0xFF
-    wf = v[:, iw].permute(1, 0, 2).reshape(k * fac.R, n)   # (K*R, N)
     ix = x.to(torch.int64) & 0xFF
-    step = chunk_rows(k * fac.R, 1, dev)
-    corr = [torch.matmul(u[ix[r0:r0 + step]].reshape(-1, k * fac.R), wf)
-            for r0 in range(0, m, step)]
-    corr = (torch.cat(corr) if corr else
-            torch.zeros((0, n), dtype=torch.float64, device=dev))
+    step = chunk_rows(kr, 1, dev)[0]
+    cols = max(1, (budget or RANK1_PLAIN_BUDGET) // kr)
+    corr = []
+    for c0 in range(0, n, cols):
+        wf = v[:, iw[:, c0:c0 + cols]].permute(1, 0, 2).reshape(kr, -1)
+        corr.append(torch.cat(
+            [torch.matmul(u[ix[r0:r0 + step]].reshape(-1, kr), wf)
+             for r0 in range(0, m, step)]) if m else
+            torch.zeros((0, wf.shape[1]), dtype=torch.float64, device=dev))
+    corr = (torch.cat(corr, dim=1) if corr else
+            torch.zeros((m, 0), dtype=torch.float64, device=dev))
     return (int8_matmul(x, w).to(torch.int64)
             - corr.to(torch.int64)).to(torch.int32)
 
@@ -583,9 +666,11 @@ def fused_matmul(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
 
 
 def rank1_matmul(x: torch.Tensor, w: torch.Tensor,
-                 design: str = "proposed") -> torch.Tensor:
+                 design: str = "proposed",
+                 tile_bytes: Optional[int] = None) -> torch.Tensor:
     """K3 (replaces ``rank1_matmul_pallas``): (M,K) x (K,N) int8 -> int32,
-    bit-identical to the paper multiplier's signed LUT."""
+    bit-identical to the paper multiplier's signed LUT. One launch per
+    column tile (``rank1_column_tiles``), each counted."""
     _check_operands(x, w)
     _check_design(design)
     if _on_cpu(x, w):
@@ -593,16 +678,17 @@ def rank1_matmul(x: torch.Tensor, w: torch.Tensor,
     _check_cuda(x, w)
     out = torch.empty((x.shape[0], w.shape[1]), dtype=torch.int32,
                       device=x.device)
-    _launch_tc("rank1", design, x, w, out)
-    _count(rank1_matmul, "rank1")
+    n = _launch_tc("rank1", design, x, w, out, tile_bytes=tile_bytes)
+    _count(rank1_matmul, "rank1", n)
     return out
 
 
 def rank1_fused_matmul(x: torch.Tensor, w: torch.Tensor,
                        scale: torch.Tensor, bias: torch.Tensor,
-                       design: str = "proposed",
-                       relu: bool = False) -> torch.Tensor:
-    """K4 (replaces ``rank1_fused_matmul_pallas``): K3 with K2's epilogue."""
+                       design: str = "proposed", relu: bool = False,
+                       tile_bytes: Optional[int] = None) -> torch.Tensor:
+    """K4 (replaces ``rank1_fused_matmul_pallas``): K3 with K2's epilogue,
+    launched per column tile as K3."""
     _check_operands(x, w, (2, 3))
     _check_design(design)
     _check_epilogue(w, scale, bias)
@@ -611,8 +697,9 @@ def rank1_fused_matmul(x: torch.Tensor, w: torch.Tensor,
     _check_cuda(x, w, scale, bias)
     out = torch.empty((*x.shape[:-1], w.shape[1]), dtype=torch.float32,
                       device=x.device)
-    _launch_tc("rank1", design, x, w, out, scale, bias, relu)
-    _count(rank1_fused_matmul, "rank1")
+    n = _launch_tc("rank1", design, x, w, out, scale, bias, relu,
+                   tile_bytes)
+    _count(rank1_fused_matmul, "rank1", n)
     return out
 
 

@@ -1,9 +1,17 @@
 """The decoder LM of the JAX package's ``repro.models.transformer_lm``, for
-the dense global-attention families (smollm, qwen1.5, deepseek-coder).
+the dense global-attention families (smollm, qwen1.5, deepseek-coder),
+gemma3's 5:1 local:global sliding window, and the mixture-of-experts
+families with GQA (kimi-k2) or MLA (deepseek-v2) attention.
 
 A config compiles to a "block program": a list of (repeat, [layer kinds])
-groups. Each group's params are stacked on a leading ``repeat`` axis, in
-the reference's layout, so that weights carry across by a tree map
+groups:
+
+  dense / moe :  [(L, ('self',))]
+  gemma3 5:1  :  [(L // 6, ('local',) * 5 + ('global',)),
+                  (1, ('global',) * (L % 6))]
+
+Each group's params are stacked on a leading ``repeat`` axis, in the
+reference's layout, so that weights carry across by a tree map
 (``repro_torch.convert``). Where the reference scans over the stacked axis,
 ``backbone`` runs a Python loop over it; caches mirror the block program
 and are indexed the same way, and are written in place.
@@ -13,8 +21,8 @@ Every projection (QKV, attention output, MLP, the LM head) runs through
 multiplier's CUDA kernels on the card, under the ``*_pallas`` backends.
 
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-item): windowed, cross and MLA attention, MoE, the SSM layers (rwkv6,
-hymba), stub embeddings and multi-codebook heads (musicgen).
+item): cross-attention (llama-3.2 vision), the SSM layers (rwkv6, hymba),
+stub embeddings and multi-codebook heads (musicgen).
 """
 from __future__ import annotations
 
@@ -29,13 +37,12 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.nn import attention as A
 from repro_torch.nn import layers as L
+from repro_torch.nn import moe as MOE
 from repro_torch.nn.module import (ParamDesc, init_params, resolve_device,
                                    stack)
 from repro_torch.quant.quantize import BF16, QuantConfig
 
 NOT_PORTED = {
-    "moe": "mixture-of-experts layers (deepseek-v2, kimi-k2) are not "
-           "ported yet: ROADMAP.md queue A, item 17",
     "ssm": "SSM layers (rwkv6, hymba) are not ported yet: ROADMAP.md "
            "queue A, item 18",
     "io": "stub embeddings and multi-codebook heads (musicgen) are not "
@@ -99,37 +106,56 @@ class ArchConfig:
     def padded_vocab(self) -> int:
         return self.vocab_pad or self.vocab
 
-    def attn_cfg(self) -> A.AttnConfig:
-        """Every layer's attention; the windowed, cross and MLA fields are
-        passed on so that ``A.check_ported`` refuses them."""
+    def attn_cfg(self, kind: str = "self") -> A.AttnConfig:
+        """The attention of a layer of ``kind`` ('self', 'local',
+        'global'; 'cross' is passed on so that ``A.check_ported`` refuses
+        it)."""
         return A.AttnConfig(
             d_model=self.d_model, n_heads=self.n_heads,
             n_kv_heads=self.n_kv_heads, head_dim=self.dh,
             rope_theta=self.rope_theta, qkv_bias=self.qkv_bias,
-            window=self.local_window, cross=bool(self.cross_every),
-            p_bf16=self.attn_p_bf16,
+            window=self.local_window if kind == "local" else 0,
+            cross=(kind == "cross"), p_bf16=self.attn_p_bf16,
             kv_lora=self.kv_lora, qk_nope=self.qk_nope if self.kv_lora else 0,
             qk_rope=self.qk_rope if self.kv_lora else 0,
             v_head_dim=self.v_head_dim if self.kv_lora else 0)
 
+    def moe_cfg(self) -> MOE.MoEConfig:
+        return MOE.MoEConfig(d_model=self.d_model, n_experts=self.n_experts,
+                             top_k=self.top_k, d_ff=self.moe_d_ff or self.d_ff,
+                             n_shared=self.n_shared,
+                             int8_gather=self.moe_int8_gather,
+                             capacity_factor=self.moe_capacity)
+
     # ---- block program ----
     def blocks(self) -> List[Tuple[int, Tuple[str, ...]]]:
-        """One group of ``n_layers`` global self-attention layers: the
-        program of every family this port runs."""
-        return [(self.n_layers, ("self",))]
+        Lc = self.n_layers
+        if self.local_ratio:
+            per = self.local_ratio + 1
+            n_groups, rem = divmod(Lc, per)
+            prog = [(n_groups, ("local",) * self.local_ratio + ("global",))]
+            if rem:
+                prog.append((1, ("global",) * rem))
+            return prog
+        if self.cross_every:
+            per = self.cross_every
+            n_groups, rem = divmod(Lc, per)
+            prog = [(n_groups, ("self",) * (per - 1) + ("cross",))]
+            if rem:
+                prog.append((1, ("self",) * rem))
+            return prog
+        return [(Lc, ("self",))]
 
 
 def check_ported(cfg: ArchConfig) -> None:
     """Raise for every part of ``cfg`` this port does not run yet."""
     if cfg.ssm:
         raise NotImplementedError(NOT_PORTED["ssm"])
-    if cfg.n_experts:
-        raise NotImplementedError(NOT_PORTED["moe"])
     if cfg.embed_stub or cfg.n_codebooks > 1:
         raise NotImplementedError(NOT_PORTED["io"])
-    if cfg.local_ratio:
-        raise NotImplementedError(A.NOT_PORTED["window"])
-    A.check_ported(cfg.attn_cfg())
+    for _, kinds in cfg.blocks():
+        for kind in kinds:
+            A.check_ported(cfg.attn_cfg(kind))
 
 
 # ---------------------------------------------------------------------------
@@ -146,11 +172,15 @@ def _mlp_desc(cfg: ArchConfig, dtype):
             "wd": ParamDesc((Fd, D), ("mlp", "fsdp"), dtype=dtype)}
 
 
-def _layer_desc(cfg: ArchConfig, dtype):
-    return {"ln1": L.rmsnorm_desc(cfg.d_model, dtype),
-            "ln2": L.rmsnorm_desc(cfg.d_model, dtype),
-            "attn": A.attn_desc(cfg.attn_cfg(), dtype),
-            "mlp": _mlp_desc(cfg, dtype)}
+def _layer_desc(cfg: ArchConfig, kind: str, dtype):
+    d: Dict[str, Any] = {"ln1": L.rmsnorm_desc(cfg.d_model, dtype),
+                         "ln2": L.rmsnorm_desc(cfg.d_model, dtype),
+                         "attn": A.attn_desc(cfg.attn_cfg(kind), dtype)}
+    if cfg.n_experts:
+        d["moe"] = MOE.moe_desc(cfg.moe_cfg(), dtype)
+    else:
+        d["mlp"] = _mlp_desc(cfg, dtype)
+    return d
 
 
 def descs(cfg: ArchConfig):
@@ -163,7 +193,7 @@ def descs(cfg: ArchConfig):
     tree["final_ln"] = L.rmsnorm_desc(cfg.d_model, dtype)
     tree["blocks"] = []
     for rep, kinds in cfg.blocks():
-        group = {f"k{i}_{kind}": _layer_desc(cfg, dtype)
+        group = {f"k{i}_{kind}": _layer_desc(cfg, kind, dtype)
                  for i, kind in enumerate(kinds)}
         tree["blocks"].append(stack(group, rep))
     return tree
@@ -171,7 +201,8 @@ def descs(cfg: ArchConfig):
 
 def init(cfg: ArchConfig, generator: torch.Generator, device="cuda"):
     """Random parameters from ``generator`` (the JAX package's scales; the
-    numbers differ, since its RNG is another)."""
+    numbers differ, since its RNG is another; on the card the largest
+    leaves come from the card's generator, ``nn.module.init_params``)."""
     return init_params(descs(cfg), generator, device)
 
 
@@ -181,13 +212,15 @@ def init(cfg: ArchConfig, generator: torch.Generator, device="cuda"):
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int,
                dtype=torch.bfloat16, device="cuda"):
-    """Cache tree mirroring the block program (stacked per group): every
-    leaf is (repeat, batch, max_len, Hkv, Dh), zero."""
+    """Cache tree mirroring the block program (stacked per group), zero:
+    k/v leaves (repeat, batch, slots, Hkv, Dh), with slots = max_len for
+    global layers and min(window, max_len) for local ones; MLA's ckv / kpe
+    leaves (repeat, batch, max_len, kv_lora | rope_dim)."""
     check_ported(cfg)
     dev = resolve_device(device)
     blocks = []
     for rep, kinds in cfg.blocks():
-        group = {f"k{i}_{kind}": A.init_cache(cfg.attn_cfg(), batch,
+        group = {f"k{i}_{kind}": A.init_cache(cfg.attn_cfg(kind), batch,
                                               max_len, dtype, dev)
                  for i, kind in enumerate(kinds)}
         blocks.append(map_leaves(lambda t: t.expand(rep, *t.shape).clone(),
@@ -238,27 +271,60 @@ def _rmsnorm_columns(params, x):
                       for j in range(x.shape[1])], dim=1)
 
 
-def _layer(params, x, cfg: ArchConfig, *, cache, pos, qat, window=False):
-    norm = _rmsnorm_columns if window else L.rmsnorm
+def _layer(params, x, kind: str, cfg: ArchConfig, *, cache, pos, qat,
+           columns=False):
+    """One layer -> (x, aux). ``columns`` is :func:`verify_step`'s: the
+    norms, MLA attention and a mixture-of-experts layer run once per
+    sequence column."""
+    norm = _rmsnorm_columns if columns else L.rmsnorm
     h = norm(params["ln1"], x)
-    ao, _ = A.apply(params["attn"], h, cfg.attn_cfg(), cfg.quant,
-                    cache=cache, pos=pos, qat=qat)
+    acfg = cfg.attn_cfg(kind)
+    if columns and acfg.is_mla:
+        ao = torch.cat([A.apply(params["attn"], _column(h, j), acfg,
+                                cfg.quant, cache=cache, pos=pos + j,
+                                qat=qat)[0] for j in range(h.shape[1])],
+                       dim=1)
+    else:
+        ao, _ = A.apply(params["attn"], h, acfg, cfg.quant, cache=cache,
+                        pos=pos, qat=qat)
     x = x + ao
     h2 = norm(params["ln2"], x)
-    return x + _mlp(params["mlp"], h2, cfg, qat)
+    if "moe" not in params:
+        return x + _mlp(params["mlp"], h2, cfg, qat), _zero(x)
+    mcfg = cfg.moe_cfg()
+    if not columns:
+        mo, aux = MOE.apply(params["moe"], h2, mcfg, cfg.quant, qat=qat)
+        return x + mo, aux
+    outs = [MOE.apply(params["moe"], _column(h2, j), mcfg, cfg.quant,
+                      qat=qat) for j in range(h2.shape[1])]
+    return (x + torch.cat([o for o, _ in outs], dim=1),
+            sum(a for _, a in outs))
+
+
+def _column(x, j: int):
+    """Column j of (B, S, D) as a contiguous (B, 1, D) tensor: the layout,
+    and so the float kernels, of a decode step's input."""
+    return x[:, j:j + 1].contiguous()
+
+
+def _zero(x):
+    return torch.zeros((), dtype=torch.float32, device=x.device)
 
 
 def backbone(params, x, cfg: ArchConfig, *, caches=None, pos=None,
              qat: bool = False, training: bool = False,
-             window: bool = False):
-    """x: (B,S,D) embeddings -> (hidden, caches). A Python loop over each
-    group's stacked layers; the caches are written in place. ``qat`` runs
-    every projection as fake-quant; ``training`` with ``cfg.remat``
-    recomputes each layer in the backward instead of keeping its
-    activations (the reference's ``jax.checkpoint``). ``window`` is
-    :func:`verify_step`'s: the norms run per column."""
+             columns: bool = False):
+    """x: (B,S,D) embeddings -> (hidden, caches, aux). A Python loop over
+    each group's stacked layers; the caches are written in place; ``aux``
+    sums the mixture-of-experts layers' load-balancing losses (0 without
+    them). ``qat`` runs every projection as fake-quant; ``training`` with
+    ``cfg.remat`` recomputes each layer in the backward instead of keeping
+    its activations (the reference's ``jax.checkpoint``). ``columns`` is
+    :func:`verify_step`'s: the norms, MLA attention and the experts run
+    per column."""
     check_ported(cfg)
     remat = cfg.remat and training and caches is None
+    aux = _zero(x)
     for bi, (rep, kinds) in enumerate(cfg.blocks()):
         bparams = params["blocks"][bi]
         bcache = None if caches is None else caches["blocks"][bi]
@@ -268,12 +334,13 @@ def backbone(params, x, cfg: ArchConfig, *, caches=None, pos=None,
                 key = f"k{i}_{kind}"
                 c = (None if bcache is None else
                      {n: t[r] for n, t in bcache[key].items()})
-                fn = functools.partial(_layer, cache=c, pos=pos, qat=qat,
-                                       window=window)
-                x = (checkpoint(fn, lp[key], x, cfg, use_reentrant=False)
-                     if remat else fn(lp[key], x, cfg))
-    norm = _rmsnorm_columns if window else L.rmsnorm
-    return norm(params["final_ln"], x), caches
+                fn = functools.partial(_layer, kind=kind, cfg=cfg, cache=c,
+                                       pos=pos, qat=qat, columns=columns)
+                x, a = (checkpoint(fn, lp[key], x, use_reentrant=False)
+                        if remat else fn(lp[key], x))
+                aux = aux + a
+    norm = _rmsnorm_columns if columns else L.rmsnorm
+    return norm(params["final_ln"], x), caches, aux
 
 
 def embed_tokens(params, tokens, cfg: ArchConfig):
@@ -293,11 +360,12 @@ def lm_logits(params, hidden, cfg: ArchConfig, *, qat: bool = False):
 
 def forward_loss(params, batch, cfg: ArchConfig, *, qat: bool = False,
                  training: bool = True):
-    """batch: {tokens, labels} -> scalar mean cross-entropy."""
+    """batch: {tokens, labels} -> scalar mean cross-entropy, plus the
+    mixture-of-experts layers' load-balancing loss."""
     x = embed_tokens(params, batch["tokens"], cfg)
-    h, _ = backbone(params, x, cfg, qat=qat, training=training)
+    h, _, aux = backbone(params, x, cfg, qat=qat, training=training)
     lg = lm_logits(params, h, cfg, qat=qat)
-    return L.softmax_cross_entropy(lg, batch["labels"], cfg.vocab)
+    return L.softmax_cross_entropy(lg, batch["labels"], cfg.vocab) + aux
 
 
 def prefill(params, tokens, cfg: ArchConfig, caches, lengths=None,
@@ -312,9 +380,15 @@ def prefill(params, tokens, cfg: ArchConfig, caches, lengths=None,
     ``tokens[:, 0]`` — a suffix prefill over a cache already holding KV for
     positions [0, pos_offset); the serving engine's prefix-cache hit. None
     (or 0) is a cold prefill from position 0.
+
+    A windowed layer's ring takes a prefill of at most its window
+    (``nn.attention`` raises ``ValueError`` past it). A mixture-of-experts
+    layer routes each row of the call as one group, so its capacity, and
+    with it which entries it drops, depends on the call's tokens (padding
+    included), as in the reference.
     """
     x = embed_tokens(params, tokens, cfg)
-    h, caches = backbone(params, x, cfg, caches=caches, pos=pos_offset)
+    h, caches, _ = backbone(params, x, cfg, caches=caches, pos=pos_offset)
     if lengths is not None:
         idx = torch.as_tensor(lengths, dtype=torch.int64,
                               device=h.device) - 1
@@ -329,15 +403,28 @@ def decode_step(params, token, pos, cfg: ArchConfig, caches):
     decode, or a (B,) vector giving each cache row its own absolute
     position (per-slot continuous batching)."""
     x = embed_tokens(params, token, cfg)
-    h, caches = backbone(params, x, cfg, caches=caches, pos=pos)
+    h, caches, _ = backbone(params, x, cfg, caches=caches, pos=pos)
     return lm_logits(params, h, cfg), caches
 
 
 def position_indexed(cfg: ArchConfig) -> bool:
     """Whether every cache leaf of ``cfg`` is indexed by absolute position
-    (global attention only): what prompt padding, paging and rollback need.
-    The predicate of the reference's ``serve.padded_prefill_ok``."""
+    (global GQA and MLA; not windowed rings or SSM states): what prompt
+    padding, paging and rollback need. The predicate of the reference's
+    ``serve.padded_prefill_ok``."""
     return cfg.ssm == "" and cfg.local_ratio == 0 and cfg.local_window == 0
+
+
+def prefill_limit(cfg: ArchConfig, max_len: int):
+    """The longest prefill a cache of ``max_len`` positions takes: the
+    window, where a local layer's ring holds the whole window
+    (``nn.attention`` refuses a longer write); None where only
+    ``max_len`` bounds it."""
+    if any("local" in kinds for _, kinds in cfg.blocks()) \
+            and A.is_ring(cfg.attn_cfg("local"),
+                          min(cfg.local_window, max_len)):
+        return cfg.local_window
+    return None
 
 
 def require_position_indexed(cfg: ArchConfig) -> None:
@@ -371,10 +458,20 @@ def verify_step(params, window, pos, cfg: ArchConfig, caches):
     every integer backend, row j equals the j-th sequential
     :func:`decode_step`'s logits bit for bit, and the cache writes equal
     its writes; under ``bf16`` the float projections are not row-local, and
-    only the tokens are claimed."""
+    only the tokens are claimed.
+
+    MLA attention and a mixture-of-experts layer run once per column too,
+    each column a decode step's (B, 1) call at its own position: MLA's
+    absorbed float einsums round another way at width K on the card, and
+    a mixture-of-experts layer sets its capacity per call group
+    (``nn.moe``), so a K-token group would drop entries that K one-token
+    decode steps keep. (The reference's verify pass runs both at width K;
+    for these archs the port's verify rows are those of sequential decode
+    instead.)"""
     require_position_indexed(cfg)
     x = embed_tokens(params, window, cfg)
-    h, caches = backbone(params, x, cfg, caches=caches, pos=pos, window=True)
+    h, caches, _ = backbone(params, x, cfg, caches=caches, pos=pos,
+                            columns=True)
     return lm_logits(params, h, cfg), caches
 
 
@@ -383,8 +480,8 @@ def rollback_positions(caches, start, stop):
     and return the caches: the speculative un-commit. A freshly initialized
     cache is zero, so "erased" and "never written" are the same state.
 
-    Every leaf is (rep, batch, max_len, ...), position-indexed (the port
-    builds no other cache; ``verify_step`` refuses configs that would).
+    Every leaf is (rep, batch, max_len, ...), position-indexed: GQA's k/v
+    and MLA's ckv / kpe (``verify_step`` refuses windowed rings).
     start/stop: (B,) position bounds per row (start >= stop is a no-op for
     that row). Pure masking, exact under every backend."""
     def leaf(x):
@@ -410,6 +507,7 @@ def rollback_positions(caches, start, stop):
 # A page store is an init_cache tree with (batch -> n_pages, max_len ->
 # page_size): every leaf becomes (rep, n_pages, page_size, ...). Gather and
 # store move whole pages between the store and a cache row by page index.
+# Only position-indexed caches (global GQA, MLA) are paged.
 
 def init_page_store(cfg: ArchConfig, n_pages: int, page_size: int,
                     dtype=torch.bfloat16, device="cuda"):

@@ -1,8 +1,18 @@
-"""Attention: global grouped-query attention with RoPE, after the JAX
-package's ``repro.nn.attention``.
+"""Attention: grouped-query attention with RoPE (global causal or a
+sliding window) and deepseek-v2's MLA, after the JAX package's
+``repro.nn.attention``.
 
-Cache convention (per layer; stacked over the layers of a group by the
-model): k/v (B, S_max, Hkv, Dh), written at each row's absolute positions.
+Cache conventions (per layer; stacked over the layers of a group by the
+model):
+  global attention : k/v (B, S_max, Hkv, Dh), written at each row's
+                     absolute positions.
+  windowed         : a ring buffer of W = min(window, S_max) slots; when
+                     it holds the whole window, slot = pos % W and the
+                     absolute position of each slot is rebuilt for the
+                     masks. (With S_max < window the buffer is
+                     position-indexed, and only the mask is windowed.)
+  MLA              : the compressed c_kv (B, S_max, kv_lora) and k_pe
+                     (B, S_max, rope_dim), position-indexed.
 ``apply`` writes the cache in place (the JAX package returns an updated
 copy) and returns it.
 
@@ -10,11 +20,17 @@ The attention math is plain PyTorch, as the JAX package leaves it to XLA
 outside any Pallas kernel: blockwise online softmax in float32 over KV
 chunks, masks rebuilt from absolute positions. It follows the reference's
 order of operations rather than calling a fused library attention, so that
-the two stacks' logits agree within a float32 bound.
+the two stacks' logits agree within a float32 bound. MLA runs the absorbed
+formulation (scores in the compressed space); its ``wq`` / ``wdkv`` /
+``wo`` projections go through the backend registry, its absorbed ``wuk`` /
+``wuv`` products are float einsums, as in the reference.
 
-Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-item): the windowed ring buffer (gemma3), cross-attention (llama-3.2
-vision) and absorbed MLA (deepseek-v2).
+A ring holds at most W positions, so a prefill longer than the ring
+raises ``ValueError``: the reference's scatter of such a prompt writes one
+slot twice in one update, and XLA defines no order for that.
+
+Not ported yet (raises ``NotImplementedError`` naming its ROADMAP item):
+cross-attention (llama-3.2 vision).
 """
 from __future__ import annotations
 
@@ -30,12 +46,8 @@ NEG = -2.0 ** 30
 KV_CHUNK = 1024
 
 NOT_PORTED = {
-    "window": "windowed ring-buffer attention (gemma3) is not ported yet: "
-              "ROADMAP.md queue A, item 16",
     "cross": "cross-attention (llama-3.2-vision) is not ported yet: "
              "ROADMAP.md queue A, item 19",
-    "mla": "MLA attention (deepseek-v2) is not ported yet: ROADMAP.md "
-           "queue A, item 17",
 }
 
 
@@ -63,12 +75,8 @@ class AttnConfig:
 
 def check_ported(cfg: AttnConfig) -> None:
     """Raise for the attention variants this port does not run yet."""
-    if cfg.is_mla:
-        raise NotImplementedError(NOT_PORTED["mla"])
     if cfg.cross:
         raise NotImplementedError(NOT_PORTED["cross"])
-    if cfg.window:
-        raise NotImplementedError(NOT_PORTED["window"])
 
 
 # ---------------------------------------------------------------------------
@@ -114,6 +122,19 @@ def q_positions(pos, b: int, s: int, device) -> torch.Tensor:
 def attn_desc(cfg: AttnConfig, dtype=torch.float32):
     check_ported(cfg)
     D = cfg.d_model
+    if cfg.is_mla:
+        qd = cfg.n_heads * (cfg.qk_nope + cfg.qk_rope)
+        return {
+            "wq": ParamDesc((D, qd), ("embed", "heads"), dtype=dtype),
+            "wdkv": ParamDesc((D, cfg.kv_lora + cfg.qk_rope),
+                              ("embed", "kv_lora"), dtype=dtype),
+            "wuk": ParamDesc((cfg.kv_lora, cfg.n_heads, cfg.qk_nope),
+                             ("kv_lora", "heads", None), dtype=dtype),
+            "wuv": ParamDesc((cfg.kv_lora, cfg.n_heads, cfg.v_head_dim),
+                             ("kv_lora", "heads", None), dtype=dtype),
+            "wo": ParamDesc((cfg.n_heads * cfg.v_head_dim, D),
+                            ("heads", "embed"), dtype=dtype),
+        }
     qd = cfg.n_heads * cfg.head_dim
     kvd = cfg.n_kv_heads * cfg.head_dim
     d = {
@@ -132,9 +153,21 @@ def attn_desc(cfg: AttnConfig, dtype=torch.float32):
 def init_cache(cfg: AttnConfig, batch: int, max_len: int,
                dtype=torch.bfloat16, device="cpu"):
     check_ported(cfg)
-    shape = (batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    if cfg.is_mla:
+        return {"ckv": torch.zeros((batch, max_len, cfg.kv_lora),
+                                   dtype=dtype, device=device),
+                "kpe": torch.zeros((batch, max_len, cfg.qk_rope),
+                                   dtype=dtype, device=device)}
+    slots = min(cfg.window, max_len) if cfg.window else max_len
+    shape = (batch, slots, cfg.n_kv_heads, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def is_ring(cfg: AttnConfig, slots: int) -> bool:
+    """Whether a cache of ``slots`` positions is a ring buffer: a windowed
+    layer whose buffer holds the whole window."""
+    return bool(cfg.window) and slots == cfg.window
 
 
 # ---------------------------------------------------------------------------
@@ -215,11 +248,16 @@ def apply(params, x: torch.Tensor, cfg: AttnConfig, quant: QuantConfig, *,
                 batch-synchronous decode, or a (B,) vector for per-slot
                 positions (continuous batching: each row of the cache pool
                 is at its own depth; writes and masks are per row).
-    The cache is written in place at the queries' absolute positions;
-    positions past each row's last written one are masked (k_pos = -1).
+    A position-indexed cache is written in place at the queries' absolute
+    positions, and positions past each row's last written one are masked
+    (k_pos = -1). A ring is written at slot = pos % W, and each slot's
+    absolute position is rebuilt from the row's last query position.
     ``qat`` runs every projection as fake-quant (``layers.dense``).
     """
     check_ported(cfg)
+    if cfg.is_mla:
+        return _apply_mla(params, x, cfg, quant, cache=cache, pos=pos,
+                          qat=qat)
     b, s, _ = x.shape
     dh = cfg.head_dim
     q = L.dense({"w": params["wq"], **_b(params, "bq")}, x, quant, qat)
@@ -241,9 +279,116 @@ def apply(params, x: torch.Tensor, cfg: AttnConfig, quant: QuantConfig, *,
     slots = ck.shape[1]
     bidx = torch.arange(b, device=x.device)[:, None]
     slot_ids = torch.arange(slots, device=x.device)[None, :]
-    ck[bidx, q_pos] = k.to(ck.dtype)
-    cv[bidx, q_pos] = v.to(cv.dtype)
-    written = q_pos[:, -1:] + 1                      # (B, 1)
-    k_pos = torch.where(slot_ids < written, slot_ids, -1)
+    if is_ring(cfg, slots):
+        _check_ring_write(q_pos, pos, slots)
+        write_idx = q_pos % slots                    # (B, s)
+        ck[bidx, write_idx] = k.to(ck.dtype)
+        cv[bidx, write_idx] = v.to(cv.dtype)
+        last = q_pos[:, -1:]                         # (B, 1)
+        k_abs = last - ((last - slot_ids) % slots)   # abs pos held per slot
+        k_pos = torch.where(k_abs >= 0, k_abs, -1)   # (B, slots)
+    else:
+        ck[bidx, q_pos] = k.to(ck.dtype)
+        cv[bidx, q_pos] = v.to(cv.dtype)
+        written = q_pos[:, -1:] + 1                  # (B, 1)
+        k_pos = torch.where(slot_ids < written, slot_ids, -1)
     out = _sdpa(q, ck, cv, q_pos, k_pos, cfg.window, p_bf16=cfg.p_bf16)
+    return L.dense({"w": params["wo"]}, out, quant, qat), cache
+
+
+def _check_ring_write(q_pos, pos, slots: int) -> None:
+    """Refuse a multi-token write that a ring of ``slots`` cannot hold.
+
+    After the write each slot holds the latest of the positions that map
+    to it, so the keys a query needs, (q - W, q], are all there only for a
+    single query (decode) or for queries that never wrap (every position
+    below W, as in a prefill from position 0 of at most W tokens). The
+    reference scatters a longer prompt into the ring with repeated slot
+    indices in one update, an order XLA does not define, and its earlier
+    queries then find their keys overwritten: no result can be held to
+    that, so the port raises instead."""
+    s = q_pos.shape[1]
+    if s == 1:
+        return
+    last = s - 1 if pos is None else int(q_pos[:, -1].max())
+    if last >= slots:
+        raise ValueError(
+            f"a windowed ring buffer of {slots} slots cannot take {s} "
+            f"tokens reaching position {last}: positions {slots} apart "
+            "share a slot, so the earlier queries of the write would lose "
+            "their keys (prefill at most the window, then decode)")
+
+
+# ---------------------------------------------------------------------------
+# MLA (deepseek-v2): the absorbed formulation
+# ---------------------------------------------------------------------------
+
+def _apply_mla(params, x: torch.Tensor, cfg: AttnConfig, quant: QuantConfig,
+               *, cache, pos, qat: bool):
+    """Scores q_nope^T (Wuk^T c_kv) evaluated as (q_nope Wuk) . c_kv, and
+    the context taken in the compressed space before ``wuv``: no
+    (B, S, H, Dh) key or value is ever expanded. Online softmax over KV
+    chunks, as ``_sdpa``. The cache, when given, is written in place at
+    the queries' absolute positions."""
+    b, s, _ = x.shape
+    h, dn, dr = cfg.n_heads, cfg.qk_nope, cfg.qk_rope
+    f32 = torch.float32
+    q = L.dense({"w": params["wq"]}, x, quant, qat).reshape(b, s, h, dn + dr)
+    q_nope, q_pe = q[..., :dn], q[..., dn:]
+    dkv = L.dense({"w": params["wdkv"]}, x, quant, qat)
+    ckv_new, kpe_new = dkv[..., :cfg.kv_lora], dkv[..., cfg.kv_lora:]
+
+    q_pos = q_positions(pos, b, s, x.device)         # (B, s) absolute
+    q_pe = rope(q_pe, q_pos, cfg.rope_theta)
+    kpe_new = rope(kpe_new[:, :, None, :], q_pos, cfg.rope_theta)[:, :, 0]
+
+    if cache is not None:
+        ckv, kpe = cache["ckv"], cache["kpe"]
+        bidx = torch.arange(b, device=x.device)[:, None]
+        ckv[bidx, q_pos] = ckv_new.to(ckv.dtype)
+        kpe[bidx, q_pos] = kpe_new.to(kpe.dtype)
+        written = q_pos[:, -1:] + 1                  # (B, 1)
+        slot_ids = torch.arange(ckv.shape[1], device=x.device)[None, :]
+        k_pos = torch.where(slot_ids < written, slot_ids, -1)
+    else:
+        ckv, kpe = ckv_new, kpe_new
+        k_pos = q_pos
+
+    scale = (dn + dr) ** -0.5
+    q_abs = torch.einsum("bshn,lhn->bshl", q_nope.to(f32),
+                         params["wuk"].to(f32)) * scale
+    q_pe32 = q_pe.to(f32) * scale
+    sk = ckv.shape[1]
+    c = min(KV_CHUNK, sk)
+    pad = (-sk) % c
+    kpos = k_pos.expand(b, sk)
+    if pad:
+        ckv = torch.nn.functional.pad(ckv, (0, 0, 0, pad))
+        kpe = torch.nn.functional.pad(kpe, (0, 0, 0, pad))
+        kpos = torch.nn.functional.pad(kpos, (0, pad), value=-1)
+    lora = ckv.shape[-1]
+    m = torch.full((b, h, s), NEG, dtype=f32, device=x.device)
+    l = torch.zeros((b, h, s), dtype=f32, device=x.device)
+    acc = torch.zeros((b, h, s, lora), dtype=f32, device=x.device)
+    for j in range(0, sk + pad, c):
+        ckv_j = ckv[:, j:j + c].to(f32)
+        kpj = kpos[:, j:j + c]                       # (B, c)
+        dist = q_pos[:, :, None] - kpj[:, None, :]   # (B, s, c)
+        mj = (kpj[:, None, :] >= 0) & (dist >= 0)
+        sc = (torch.einsum("bshl,bkl->bhsk", q_abs, ckv_j)
+              + torch.einsum("bshr,bkr->bhsk", q_pe32,
+                             kpe[:, j:j + c].to(f32)))
+        sc = torch.where(mj[:, None], sc, NEG)
+        m_new = torch.maximum(m, sc.amax(dim=-1))
+        p = torch.exp(sc - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1)
+        pv = p.to(torch.bfloat16).to(f32) if cfg.p_bf16 else p
+        acc = acc * corr[..., None] + torch.einsum("bhsk,bkl->bhsl", pv,
+                                                   ckv_j)
+        m = m_new
+    ctx = (acc / torch.clamp_min(l[..., None], 1e-30)).permute(0, 2, 1, 3)
+    out = torch.einsum("bshl,lhv->bshv", ctx.to(x.dtype).to(f32),
+                       params["wuv"].to(f32)).to(x.dtype)
+    out = out.reshape(b, s, h * cfg.v_head_dim)
     return L.dense({"w": params["wo"]}, out, quant, qat), cache

@@ -59,29 +59,88 @@ def _leaves(tree) -> list:
     return out
 
 
-def _init_one(d: ParamDesc, generator: torch.Generator) -> torch.Tensor:
-    if d.init == "zeros":
-        return torch.zeros(d.shape, dtype=d.dtype)
-    if d.init == "ones":
-        return torch.ones(d.shape, dtype=d.dtype)
-    scale = d.scale
-    if scale is None:
-        fan_in = int(np.prod(d.shape[:-1])) if len(d.shape) >= 2 else \
-            max(d.shape[-1], 1)
-        scale = fan_in ** -0.5
+HOST_SLICE = 1 << 26     # elements of one float32 draw on the host
+DEVICE_DRAW = 1 << 26    # a card draws leaves of more elements itself
+
+
+def _scale(d: ParamDesc) -> float:
     if d.init == "embed":
-        scale = 1.0 if d.scale is None else d.scale
-    return (torch.randn(d.shape, generator=generator, dtype=torch.float32)
-            * scale).to(d.dtype)
+        return 1.0 if d.scale is None else d.scale
+    if d.scale is not None:
+        return d.scale
+    fan_in = int(np.prod(d.shape[:-1])) if len(d.shape) >= 2 else \
+        max(d.shape[-1], 1)
+    return fan_in ** -0.5
+
+
+def _row_chunks(shape, limit: int):
+    """Leading-axis ranges of at most ``limit`` elements each (one row at
+    least)."""
+    rows = max(1, limit // max(int(np.prod(shape[1:])), 1))
+    return [(r, min(r + rows, shape[0])) for r in range(0, shape[0], rows)]
+
+
+def _init_one(d: ParamDesc, generator: torch.Generator,
+              device: torch.device) -> torch.Tensor:
+    """One leaf, drawn on the host in float32, cast and moved. A leaf over
+    HOST_SLICE elements is drawn slice by slice along its leading axis,
+    which bounds the host's float32 copy and gives the numbers of one
+    draw when each row holds a multiple of 16 elements (the CPU generator
+    fills normals in blocks of 16); other shapes are drawn whole."""
+    if d.init == "zeros":
+        return torch.zeros(d.shape, dtype=d.dtype, device=device)
+    if d.init == "ones":
+        return torch.ones(d.shape, dtype=d.dtype, device=device)
+    scale = _scale(d)
+    if int(np.prod(d.shape)) <= HOST_SLICE or len(d.shape) < 2 \
+            or int(np.prod(d.shape[1:])) % 16:
+        return (torch.randn(d.shape, generator=generator, dtype=torch.float32)
+                * scale).to(d.dtype).to(device)
+    out = torch.empty(d.shape, dtype=d.dtype, device=device)
+    for r0, r1 in _row_chunks(d.shape, HOST_SLICE):
+        out[r0:r1] = (torch.randn((r1 - r0, *d.shape[1:]),
+                                  generator=generator, dtype=torch.float32)
+                      * scale).to(d.dtype)
+    return out
+
+
+def _init_on_device(d: ParamDesc, generator: torch.Generator,
+                    device: torch.device, limit: int) -> torch.Tensor:
+    """One leaf drawn on ``device`` from a generator of its own, seeded by
+    one draw of the host ``generator``, slice by slice along its leading
+    axis (float32 slices of at most ``limit`` elements)."""
+    seed = int(torch.randint(0, 2 ** 62, (1,), generator=generator))
+    gen = torch.Generator(device=device).manual_seed(seed)
+    scale = _scale(d)
+    out = torch.empty(d.shape, dtype=d.dtype, device=device)
+    for r0, r1 in _row_chunks(d.shape, limit):
+        out[r0:r1] = (torch.randn((r1 - r0, *d.shape[1:]), generator=gen,
+                                  dtype=torch.float32, device=device)
+                      * scale).to(d.dtype)
+    return out
 
 
 def init_params(tree, generator: torch.Generator, device="cuda"):
     """Initialize a descriptor tree: normal * fan_in^-1/2 by default, drawn
     from ``generator`` on the CPU in a fixed leaf order, then moved to
     ``device``. (The numbers differ from the JAX package's, whose RNG is
-    another; parity tests pass the reference's params through numpy.)"""
+    another; parity tests pass the reference's params through numpy.)
+
+    On a CUDA device, a random leaf of more than DEVICE_DRAW elements is
+    drawn there instead (``_init_on_device``), as models of tens of
+    billions of parameters need: the host's generator is serial (some
+    170 M normals a second). Such a leaf's numbers come from the device's
+    generator; no leaf of smollm-135m or of a reduced config is that
+    large."""
     dev = resolve_device(device)
-    return tree_map(lambda d: _init_one(d, generator).to(dev), tree)
+
+    def one(d: ParamDesc) -> torch.Tensor:
+        if dev.type == "cuda" and d.init in ("normal", "embed") \
+                and int(np.prod(d.shape)) > DEVICE_DRAW:
+            return _init_on_device(d, generator, dev, DEVICE_DRAW)
+        return _init_one(d, generator, dev)
+
+    return tree_map(one, tree)
 
 
 def stack(tree, n: int, logical: str = "layers"):

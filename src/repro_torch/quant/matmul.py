@@ -97,18 +97,20 @@ def _bytes_index(t: torch.Tensor) -> torch.Tensor:
 # Integer matmul backends (torch; the CUDA kernels are the *_pallas entries)
 # ---------------------------------------------------------------------------
 
-def _approx_error_lut(x_q, w_q, err_flat):
-    """sum_k E[x[m,k], w[k,n]] via gather, chunked over rows."""
+def _approx_error_lut(x_q, w_q, err_flat, budget=None):
+    """sum_k E[x[m,k], w[k,n]] via gather, in (rows, cols) chunks
+    (``kernels.approx_matmul.chunk_rows``)."""
     m, k = x_q.shape
     n = w_q.shape[1]
     xi = _bytes_index(x_q)
     wi = _bytes_index(w_q)
-    step = KA.chunk_rows(k, n, x_q.device)
-    out = [torch.take(err_flat, (xi[r0:r0 + step, :, None] * 256 + wi[None])
-                      .long()).sum(dim=1, dtype=torch.int32)
-           for r0 in range(0, m, step)]
-    return torch.cat(out) if out else torch.zeros(
-        (0, n), dtype=torch.int32, device=x_q.device)
+    rows, cols = KA.chunk_rows(k, n, x_q.device, budget)
+
+    def part(r0, r1, c0, c1):
+        idx = (xi[r0:r1, :, None] * 256 + wi[None, :, c0:c1]).long()
+        return torch.take(err_flat, idx).sum(dim=1, dtype=torch.int32)
+
+    return KA._tiled(m, n, rows, cols, part, torch.int32, x_q.device)
 
 
 def approx_matmul_lut(x_q, w_q, cfg: QuantConfig) -> torch.Tensor:

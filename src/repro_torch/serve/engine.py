@@ -82,8 +82,10 @@ class ServeRequest:
 def padded_prefill_ok(cfg: ArchConfig) -> bool:
     """Whether prompts may be padded to a length bucket at prefill, and
     whether the prefix cache may page the KV: only position-indexed caches
-    (global attention) mask padded junk by absolute position and have
-    per-position KV to page. The same predicate as the reference's."""
+    (global GQA, MLA) mask padded junk by absolute position and have
+    per-position KV to page. Windowed archs (gemma3) prefill at the exact
+    prompt length and serve unpaged. The same predicate as the
+    reference's."""
     return TLM.position_indexed(cfg)
 
 
@@ -160,6 +162,13 @@ class Engine:
         req.prompt = np.asarray(req.prompt, np.int32).reshape(-1)
         if len(req.prompt) < 1:
             raise ValueError(f"request {req.rid}: empty prompt")
+        limit = TLM.prefill_limit(self.cfg, self.max_len)
+        if limit is not None and len(req.prompt) > limit:
+            raise ValueError(
+                f"request {req.rid}: a prompt of {len(req.prompt)} tokens "
+                f"is longer than the {limit}-slot ring buffer of "
+                f"{self.cfg.name}'s windowed layers, which a prefill "
+                "cannot write (nn/attention.py)")
         # reset engine-owned state so a caller may resubmit the same
         # request object to another run
         req.output = []
@@ -171,7 +180,11 @@ class Engine:
     def _bucket(self, plen: int, offset: int = 0) -> int:
         """Prefill length: next power of two >= plen (at least 8, capped so
         that offset + bucket stays inside the cache), as the reference
-        buckets its compiled shapes."""
+        buckets its compiled shapes; the exact length where padding is
+        unsafe (``padded_prefill_ok``: a ring would alias the padded junk
+        onto real positions)."""
+        if not padded_prefill_ok(self.cfg):
+            return plen
         bucket = 8
         while bucket < plen:
             bucket *= 2

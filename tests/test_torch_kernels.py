@@ -322,3 +322,53 @@ def test_sass_counts_table_lookups_apart():
     assert SASS.ops_per_pair(loop, (1, 1), 2) == (3.0, 1.0)
     with pytest.raises(ValueError, match="tile steps"):
         SASS.ops_per_pair(loop, (2, 2), 2)
+
+
+# ---------------------------------------------------------------------------
+# Bounded workspaces: tiles over N change no result
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("plain", ["deficit", "lut", "rank1"])
+def test_plain_versions_tiled_equal_untiled(plain):
+    """Under a budget far below one row's K * N, the plain versions build
+    their intermediates in several row and column tiles: the sums equal
+    the untiled ones bit for bit."""
+    from repro_torch.quant import matmul as QM
+    from repro_torch.quant.quantize import QuantConfig
+    x, w, _, _ = _operands(5, 40, 70)
+    tx, tw = _t(x, w)
+    if plain == "deficit":
+        x32, w32 = tx.to(torch.int32), tw.to(torch.int32)
+        assert K.chunk_rows(40, 70, x32.device, budget=200) == (1, 5)
+        want = K._deficit_corr(x32, w32, "proposed")
+        got = K._deficit_corr(x32, w32, "proposed", budget=200)
+    elif plain == "lut":
+        err = QM._err_lut_device(QM._mult_cfg(QuantConfig("approx_lut")),
+                                 "cpu")
+        want = QM._approx_error_lut(tx, tw, err)
+        got = QM._approx_error_lut(tx, tw, err, budget=200)
+    else:
+        want = K.rank1_matmul_plain(tx, tw)
+        got = K.rank1_matmul_plain(tx, tw, budget=40 * 49 * 9)
+    assert got.dtype == want.dtype and torch.equal(got, want)
+
+
+def test_rank1_column_tiles_cover_n_and_build_the_same_planes():
+    """RANK1's launches over a wide weight: the column tiles cover N once,
+    in order, each a multiple of 16 columns but the last and within the
+    byte budget; each tile's plane operand equals its columns' rows of the
+    untiled operand."""
+    k, n = 40, 100
+    per_col = 40 * (8 + 2 * K.rank1_r_pad(49))
+    tiles = K.rank1_column_tiles(k, n, tile_bytes=33 * per_col)
+    assert tiles == [(0, 32), (32, 64), (64, 96), (96, 100)]
+    assert K.rank1_column_tiles(k, n) == [(0, n)]
+    assert K.rank1_column_tiles(5376, 262144)[0] == (0, 7120)
+    w = torch.from_numpy(RNG.integers(-127, 128, (k, n)).astype(np.int8))
+    whole = K.rank1_weight_planes(w)
+    nd = whole.shape[0] // n
+    for n0, n1 in tiles:
+        part = K.rank1_weight_planes(w[:, n0:n1])
+        for d in range(nd):
+            assert torch.equal(part[d * (n1 - n0):(d + 1) * (n1 - n0)],
+                               whole[d * n + n0:d * n + n1])

@@ -60,7 +60,8 @@ LOGIT_RTOL = 2e-3
 BF16_LOGIT_RTOL = 3e-2
 TINY = dict(n_layers=2, d_model=64, n_heads=4, n_kv_heads=2, d_ff=128,
             vocab=64, vocab_pad=64, head_dim=16)
-PORTED = ("smollm-135m", "qwen1.5-32b", "deepseek-coder-33b")
+PORTED = ("smollm-135m", "qwen1.5-32b", "deepseek-coder-33b", "gemma3-27b",
+          "deepseek-v2-236b", "kimi-k2-1t-a32b")
 LOGIT_BACKENDS = ("bf16", "int8_exact", "approx_lut", "approx_stage1",
                   "msr4", "approx_deficit_pallas", "approx_stage1_pallas",
                   "approx_rank1_pallas")
@@ -137,7 +138,8 @@ def test_configs_match_reference(arch):
 
 def test_unported_archs_raise_naming_their_roadmap_item():
     for name in set(PR.ARCH_NAMES) - set(PORTED):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md queue A"):
+        with pytest.raises(NotImplementedError,
+                           match="ROADMAP.md queue A, item 1[89]"):
             PR.get(name)
     with pytest.raises(KeyError):
         PR.get("no-such-arch")
@@ -172,6 +174,39 @@ def test_stacked_init_scale_follows_the_reference():
     assert w.shape == (8, 64, 32)
     assert abs(float(w.std()) / want - 1) < 0.05
     assert abs(float(rw.std()) / want - 1) < 0.05
+
+
+@pytest.mark.parametrize("shape", [(8, 64, 32), (5, 3, 7)])
+def test_sliced_host_draw_equals_one_draw(monkeypatch, shape):
+    """A leaf over HOST_SLICE elements is drawn slice by slice along its
+    leading axis: the same numbers as one draw where a row holds a
+    multiple of 16 elements; other shapes are drawn whole."""
+    desc = {"a": M.ParamDesc(shape, ("layers", "embed", "mlp")),
+            "b": M.ParamDesc((4, 16), ("embed", "mlp"))}
+    want = M.init_params(desc, torch.Generator().manual_seed(0), "cpu")
+    monkeypatch.setattr(M, "HOST_SLICE", 2 * shape[1] * shape[2] - 1)
+    got = M.init_params(desc, torch.Generator().manual_seed(0), "cpu")
+    for k in desc:
+        assert torch.equal(got[k], want[k]), k
+
+
+def test_device_draw_of_large_leaves():
+    """The card's draw of a large leaf (``_init_on_device``, here on the
+    CPU's device generator): seeded from one draw of the host generator,
+    deterministic, sliced under its limit, at the descriptor's scale."""
+    d = M.stack({"w": M.ParamDesc((64, 48), ("embed", "mlp"))}, 6)["w"]
+
+    def draw(limit):
+        return M._init_on_device(d, torch.Generator().manual_seed(0),
+                                 torch.device("cpu"), limit)
+
+    a = draw(64 * 48)
+    assert torch.equal(a, draw(64 * 48)) and a.shape == (6, 64, 48)
+    assert abs(float(a.std()) / (6 * 64) ** -0.5 - 1) < 0.05
+    host = M.init_params({"w": d}, torch.Generator().manual_seed(0),
+                         "cpu")["w"]
+    assert not torch.equal(a, host)
+    assert M.DEVICE_DRAW > 49152 * 576, "smollm-135m's numbers would move"
 
 
 def test_init_and_cache_trees_match_reference_shapes():
@@ -337,13 +372,13 @@ def test_attention_prefill_then_vector_pos_decode(backend):
 
 def test_unported_attention_and_layers_raise():
     base = PR.reduced("smollm-135m", **TINY)
-    for over in ({"local_ratio": 5, "local_window": 8}, {"cross_every": 2},
-                 {"kv_lora": 32}, {"n_experts": 4, "top_k": 2},
-                 {"ssm": "rwkv6"}, {"n_codebooks": 2}, {"embed_stub": True}):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md queue A"):
+    for over in ({"cross_every": 2}, {"ssm": "rwkv6"}, {"n_codebooks": 2},
+                 {"embed_stub": True}):
+        with pytest.raises(NotImplementedError,
+                           match="ROADMAP.md queue A, item 1[89]"):
             PT.descs(dataclasses.replace(base, **over))
-    with pytest.raises(NotImplementedError, match="item 16"):
-        A.attn_desc(A.AttnConfig(64, 4, 2, 16, window=8))
+    with pytest.raises(NotImplementedError, match="item 19"):
+        A.attn_desc(A.AttnConfig(64, 4, 2, 16, cross=True))
 
 
 # ---------------------------------------------------------------------------

@@ -172,6 +172,7 @@ def test_serve_smoke_rows_equal_committed_artifact(monkeypatch):
     committed = json.loads((COMMITTED / "serve.json").read_text())
     want = {r["backend"]: r for r in committed["tables"]["serve"]}
     assert [r["backend"] for r in rows] == list(SERVE_POINTS)
+    ref = _jax_served(rcfg, rparams, reqs, slots, max_len, "bf16")
     for row in rows:
         label = row["backend"]
         assert row["solo_match"] and row["spec_match"]
@@ -183,7 +184,6 @@ def test_serve_smoke_rows_equal_committed_artifact(monkeypatch):
             assert row[key] == want[label][key], (label, key)
         # the JAX package's tokens today, and the columns they give
         from repro.eval import serve as RSV
-        ref = _jax_served(rcfg, rparams, reqs, slots, max_len, "bf16")
         outs = _jax_served(rcfg, rparams, reqs, slots, max_len, label)
         backend, _, mult = label.rstrip("]").partition("[")
         got, _ = SERVE.serve_outputs(

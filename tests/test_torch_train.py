@@ -220,10 +220,10 @@ def test_adamw_two_updates_match_jax(quantized):
     state = A.init(tp, cfg)
     _tree_close(state["params"], _numpy_tree(rstate["params"]), 0.0)
     rp = jax.tree.map(jnp.asarray, params)
+    ref_update = jax.jit(functools.partial(RA.update, cfg=rcfg))
     for step in range(2):
         grads = _grads_like(params, 1e-3, seed=step)
-        rp, rstate = jax.jit(functools.partial(RA.update, cfg=rcfg))(
-            jax.tree.map(jnp.asarray, grads), rstate, rp)
+        rp, rstate = ref_update(jax.tree.map(jnp.asarray, grads), rstate, rp)
         tp, state = A.update(params_from_jax(grads, device="cpu"), state, tp,
                              cfg)
         want_p, want_s = _numpy_tree(rp), _numpy_tree(rstate)
@@ -244,9 +244,9 @@ def test_adamw_update_with_clipping_matches_jax(quantized):
     grads = _grads_like(params, 0.5, seed=7)
     rcfg = RA.AdamWConfig(quantized_state=quantized)
     cfg = A.AdamWConfig(quantized_state=quantized)
-    rp, rstate = RA.update(jax.tree.map(jnp.asarray, grads),
-                           RA.init(RCNN.lenet5_descs(), rcfg),
-                           jax.tree.map(jnp.asarray, params), rcfg)
+    rp, rstate = jax.jit(functools.partial(RA.update, cfg=rcfg))(
+        jax.tree.map(jnp.asarray, grads), RA.init(RCNN.lenet5_descs(), rcfg),
+        jax.tree.map(jnp.asarray, params))
     tp = params_from_jax(params, device="cpu")
     tp, state = A.update(params_from_jax(grads, device="cpu"),
                          A.init(tp, cfg), tp, cfg)
