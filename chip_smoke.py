@@ -30,7 +30,8 @@ Phases, each printing its seconds:
             verify and prefill shapes; K2 and K4 (the LM routes) at
             gemma3-27b's and deepseek-v2's decode shapes (the gemma3 head,
             5,376 x 262,144, in 37 column tiles of RANK1) and gemma3's
-            1,000-token prefill; K3 and K4 in 24 column tiles of a small
+            1,000-token prefill, and at rwkv6-3b's and hymba-1.5b's decode
+            shapes (SSM_LAYERS); K3 and K4 in 24 column tiles of a small
             budget; printing the CUDA-core plan
             (tile, K slices) of each; hold every backend's
             int32 output to the JAX
@@ -141,16 +142,37 @@ Phases, each printing its seconds:
             and one speculative serving (K = 4, approx_stage1_pallas
             draft, approx_deficit_pallas target) equal to sequential
             decode;
-12. launch counts, set to 0 before each of phases 4, 5 and 6 (the suite
+12. ssm   rwkv6-3b (32 layers of RWKV6 time and channel mix, d_model
+            2,560, 40 heads of 64, d_ff 8,960, vocab 65,536, the chunked
+            WKV; 3,099,527,680 bf16 parameters) and hymba-1.5b (32 layers
+            of windowed attention beside Mamba, d_model 1,600, 25 / 5 heads
+            of 64, state 16, window 1,024, SwiGLU d_ff 5,504; 1,345,537,600)
+            at their published widths from seed 0: first the chunked WKV
+            against the sequential recurrence at rwkv6's layer shape (150
+            steps, three chunks); then each whole model serves the serve
+            suite's workload (rwkv6 with one more request of a 150-token
+            prompt: three WKV chunks, the last ragged, at max_len 192)
+            unpaged at exact prompt lengths under bf16 and
+            approx_deficit_pallas, with each serving's step ms, TTFT, ms
+            per decoded token, peak memory, a timed prefill of the longest
+            prompt, and a fixed decode step's ms, busy, kernels, idle share
+            and launches; bf16's sampled rows within SSM_RTOL of their
+            range of a cache-free forward over the same tokens; then the
+            first SSM_DEPTH layers of the same draw (the head whole) serve
+            the workload under the oracles approx_lut and approx_stage1
+            and the three CUDA backends: each CUDA backend's tokens and
+            every sampled logits row bitwise equal to its oracle's, and
+            deficit's to rank1's;
+13. launch counts, set to 0 before each of phases 4, 5 and 6 (the suite
    runners' calls), 7 (the served runs), 8 (the speculative runs) and the
-   served runs of 10 and 11, and read after it: LeNet-5 and FFDNet each
-   launch every entry but fused_matmul[exact], the suites, spec and the
-   ring and deepseek paths every fused entry, the serve path K2[deficit],
-   K2[stage1], K4 and (unfused) K1[stage1], full-depth gemma3
-   K2[deficit];
-13. one JSON line each ``{"suites": {...}}``, ``{"serve": {...}}``,
+   served runs of 10, 11 and 12, and read after it: LeNet-5 and FFDNet
+   each launch every entry but fused_matmul[exact], the suites, spec and
+   the ring, deepseek and ssm paths every fused entry, the serve path
+   K2[deficit], K2[stage1], K4 and (unfused) K1[stage1], full-depth
+   gemma3 K2[deficit];
+14. one JSON line each ``{"suites": {...}}``, ``{"serve": {...}}``,
    ``{"spec": {...}}``, ``{"lm_train": {...}}``, ``{"gemma": {...}}``,
-   ``{"deepseek": {...}}`` and ``{"kernels": [...]}``;
+   ``{"deepseek": {...}}``, ``{"ssm": {...}}`` and ``{"kernels": [...]}``;
 then the ``nvidia-smi`` name and power limit, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure raises: the script exits
 non-zero and prints no result. It imports nothing of JAX.
@@ -248,7 +270,8 @@ SERVE_VARIANTS = SUITE_VARIANTS + [("approx_matmul", "stage1")]
 ARCH_VARIANTS = SUITE_VARIANTS
 PATH_NEEDS = {"suites": SUITE_VARIANTS, "serve": SERVE_VARIANTS,
               "spec": SUITE_VARIANTS, "gemma": [("fused_matmul", "deficit")],
-              "gemma_ring": ARCH_VARIANTS, "deepseek": ARCH_VARIANTS}
+              "gemma_ring": ARCH_VARIANTS, "deepseek": ARCH_VARIANTS,
+              "ssm": ARCH_VARIANTS}
 
 LENET_LAYERS = {  # (B, M, K, N) of each quantized matmul at batch 50
     "lenet5.c1": (50, 784, 25, 6), "lenet5.c2": (50, 196, 150, 16),
@@ -302,10 +325,24 @@ ARCH_LAYERS = {  # gemma3-27b and deepseek-v2-236b: decode of 4 slots, and
     "dsv2.decode.wdkv": (4, 1, 5120, 576),
     "dsv2.decode.wo": (4, 1, 16384, 5120),
     "dsv2.decode.head": (4, 1, 5120, 102400)}
+SSM_LAYERS = {  # rwkv6-3b and hymba-1.5b: decode of 4 slots; held for the
+    # LM routes only, as ARCH_LAYERS
+    "rwkv6.decode.d": (4, 1, 2560, 2560),      # r, k, v, g, o; cmix wr
+    "rwkv6.decode.k": (4, 1, 2560, 8960),      # cmix wk
+    "rwkv6.decode.v": (4, 1, 8960, 2560),      # cmix wv
+    "rwkv6.decode.head": (4, 1, 2560, 65536),
+    "hymba.decode.d": (4, 1, 1600, 1600),      # q, o; Mamba out_proj
+    "hymba.decode.kv": (4, 1, 1600, 320),
+    "hymba.decode.in": (4, 1, 1600, 3200),     # Mamba in_proj
+    "hymba.decode.x": (4, 1, 1600, 64),        # Mamba x_proj (split K)
+    "hymba.decode.gu": (4, 1, 1600, 5504),
+    "hymba.decode.down": (4, 1, 5504, 1600),
+    "hymba.decode.head": (4, 1, 1600, 32256)}
+LM_ROUTE_LAYERS = {**ARCH_LAYERS, **SSM_LAYERS}
 # RANK1's column tiles under a small budget (rank1_column_tiles): 24 tiles
 TILED_LAYER = ("smollm.decode.up", 576 * (8 + 104) * 64)
 TIMED_LAYERS = {**LAYERS, **SERVE_LAYERS, **VERIFY_LAYERS, **LM_SUITE_LAYERS,
-                **SERVE_SUITE_LAYERS, **ARCH_LAYERS}
+                **SERVE_SUITE_LAYERS, **LM_ROUTE_LAYERS}
 TIMED_LAYER = "ffdnet.mid"
 FORWARD_REPS = 10
 
@@ -412,6 +449,10 @@ def main() -> int:
     with Phase("deepseek"):
         lines["deepseek"], paths["deepseek"] = deepseek_phase(
             torch, detail, "cuda", full=True, ops=ops)
+    torch.cuda.empty_cache()
+    with Phase("ssm"):
+        lines["ssm"], paths["ssm"] = ssm_phase(torch, detail, "cuda",
+                                               full=True, ops=ops)
 
     with Phase("launches"):
         for name, var, _ in ROWS:
@@ -690,12 +731,12 @@ def kernels_phase(torch, K, detail, ops):
               "batched(4,333,150,70)": (4, 333, 150, 70),
               **TC_SEAMS, **CUDA_CORE_SEAMS, **LAYERS, **SUITE_LAYERS,
               **SERVE_LAYERS, **VERIFY_LAYERS, **LM_SUITE_LAYERS,
-              **SERVE_SUITE_LAYERS, **ARCH_LAYERS}
+              **SERVE_SUITE_LAYERS, **LM_ROUTE_LAYERS}
     errs = {r[:2]: 0.0 for r in ROWS}
     per_layer, timed = [], []
     for label, (bb, m, k, n) in shapes.items():
         x, w, scale, bias = _operands(torch, gen, bb, m, k, n, dev)
-        arch = label in ARCH_LAYERS
+        arch = label in LM_ROUTE_LAYERS
         for name, var, _ in ROWS:
             if arch and (name, var) not in ARCH_VARIANTS:
                 continue
@@ -902,8 +943,8 @@ def _forward_ms(torch, run, reps: int) -> list:
 def _profile_ms(torch, run) -> dict:
     """One call of ``run`` under torch.profiler: its host ms (profiler on),
     the ms in which the card ran anything (kernels, copies, fills; the
-    union of their spans) and the ms of the port's kernels (approx_mm and
-    tc_mm)."""
+    union of their spans), the ms of the port's kernels (approx_mm and
+    tc_mm), and the count of device spans (every kernel, copy and fill)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -922,7 +963,7 @@ def _profile_ms(torch, run) -> dict:
         end = max(end, hi)
     ours = sum(hi - lo for lo, hi, name in spans if _ours(name))
     return {"wall_ms": wall, "device_busy_ms": busy / 1e3,
-            "kernels_ms": ours / 1e3}
+            "kernels_ms": ours / 1e3, "device_ops": len(spans)}
 
 
 def _time_forward(torch, forward, label: str) -> dict:
@@ -1573,9 +1614,20 @@ def _serve_shapes(cfg) -> list:
     """(K, N) of every projection launch of one forward, in order: the
     attention's (GQA q, k, v, o; MLA wq, wdkv, wo), the dense MLP's (gate,
     up, down; a mixture-of-experts layer's products are float), and the
-    head."""
+    head; RWKV6's time mix (r, k, v, g, o) and channel mix (k, v, r);
+    hymba's attention, Mamba (in, x, out) and MLP."""
     d, f, kvd = cfg.d_model, cfg.d_ff, cfg.n_kv_heads * cfg.dh
     qd = cfg.n_heads * cfg.dh
+    if cfg.ssm == "rwkv6":
+        layer = [(d, d)] * 5 + [(d, f), (f, d), (d, d)]
+        return layer * cfg.n_layers + [(d, cfg.padded_vocab)]
+    if cfg.ssm == "hymba":
+        mc = cfg.mamba_cfg()
+        layer = [(d, qd), (d, kvd), (d, kvd), (qd, d),
+                 (d, 2 * mc.d_inner),
+                 (mc.d_inner, mc.dt_rank + 2 * mc.n_state), (mc.d_inner, d),
+                 (d, f), (d, f), (f, d)]
+        return layer * cfg.n_layers + [(d, cfg.padded_vocab)]
     if cfg.kv_lora:
         layer = [(d, cfg.n_heads * (cfg.qk_nope + cfg.qk_rope)),
                  (d, cfg.kv_lora + cfg.qk_rope),
@@ -2300,7 +2352,8 @@ def _print_arch(label: str, be: str, row: dict) -> None:
              is not None else "n/a")
           + (f"; fixed step {row['fixed_step_ms']['median']:.3f} ms, busy "
              f"{row['device_busy_ms']:.3f}, port kernels "
-             f"{row['kernels_ms']:.3f}, idle {row['idle_share']:.2f}"
+             f"{row['kernels_ms']:.3f}, idle {row['idle_share']:.2f}, "
+             f"{row['device_ops']} device ops"
              if "fixed_step_ms" in row else "")
           + (f", {row['launches_per_step']} launches, bound "
              f"{row['step_bound_ms']:.3f} ms" if "step_bound_ms" in row
@@ -2628,6 +2681,279 @@ def deepseek_phase(torch, detail, dev: str, full: bool, ops=None) -> tuple:
     out["serving"] = {"slots": slots, "max_len": max_len,
                       "requests": len(reqs), "cache_dtype": "float32"}
     detail["deepseek"] = out
+    return out, launches
+
+
+# ---------------------------------------------------------------------------
+# Phase 12: the SSM archs, rwkv6-3b and hymba-1.5b
+# ---------------------------------------------------------------------------
+
+# (n_layers, d_model, n_heads, n_kv_heads, d_ff, vocab, window) and the
+# parameters of each published config
+SSM_ARCHS = {"rwkv6-3b": ((32, 2560, 40, 40, 8960, 65536, 0), 3_099_527_680),
+             "hymba-1.5b": ((32, 1600, 25, 5, 5504, 32001, 1024),
+                            1_345_537_600)}
+SSM_BACKENDS = ("bf16", "approx_deficit_pallas")
+SSM_DEPTH = 4                # the oracle checks' depth (the head whole)
+SSM_ORACLES = ("approx_lut", "approx_stage1")
+# rwkv6's extra request: a prompt of three WKV chunks of 64, the last one
+# ragged (22 tokens), served at max_len 192
+SSM_LONG = (150, 12, 192)    # prompt tokens, new tokens, max_len
+SSM_PREFILL_REPS = 3         # timed prefills of the workload's longest prompt
+# Served rows under the bf16 backend against a cache-free forward over the
+# whole sequence, with float32 weights (the seed-0 draw cast): the served
+# rows went through the recurrent states in the pool (prefill, decode, slot
+# reuse); a state carried wrongly moves a row by a share of its range. With
+# the bfloat16 weights the figure is printed, not held: at 32 layers the
+# bf16 model's own two forward forms (the chunked and the sequential WKV)
+# disagree by more than this (7.3e-2 on a 32-layer reduced rwkv6 on the
+# CPU), and the served rows are no further from either.
+SSM_RTOL = 5e-2
+WKV_SHAPE = (1, 150, 40, 64)     # rwkv6's layer: 40 heads of 64, 150 steps
+WKV_TOL = 2e-4
+
+
+def ssm_workload(arch: str, vocab: int, full: bool, seed: int = 0):
+    """The serve suite's workload (``serve_workload``); for rwkv6 one more
+    request with a SSM_LONG prompt, served at its max_len."""
+    reqs, slots, max_len = serve_workload(vocab, smoke=not full, seed=seed)
+    if arch == "rwkv6-3b":
+        n, new, max_len = SSM_LONG
+        rng = np.random.default_rng(seed + 17)
+        reqs = reqs + [(len(reqs), rng.integers(0, vocab, n).astype(np.int32),
+                        new)]
+    return reqs, slots, max_len
+
+
+def wkv_check(torch, SSM, dev: str, full: bool) -> dict:
+    """The chunked WKV against the sequential recurrence at rwkv6's layer
+    shape (without ``full``: 4 heads of 32) on random float32 inputs with
+    a non-zero incoming state, within WKV_TOL (rtol and atol) in y and in
+    the final state."""
+    b, t, h, n = WKV_SHAPE if full else (1, 150, 4, 32)
+    gen = torch.Generator().manual_seed(7)
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen) * scale).to(dev)
+
+    r, k, v = rnd(b, t, h, n), rnd(b, t, h, n), rnd(b, t, h, n)
+    w = torch.sigmoid(rnd(b, t, h, n)) * 0.98 + 0.01
+    u, S0 = rnd(h, n, scale=0.1), rnd(b, h, n, n, scale=0.5)
+    with torch.no_grad():
+        yc, Sc = SSM.wkv_chunked(r, k, v, w, u, S0)
+        ys, Ss = SSM.wkv_sequential(r, k, v, w, u, S0)
+    out = {"shape": [b, t, h, n], "chunks": -(-t // 64), "tol": WKV_TOL}
+    for name, a, c in (("y", yc, ys), ("S", Sc, Ss)):
+        excess = float(((a - c).abs() - WKV_TOL * c.abs()).max())
+        out[f"{name}_max_abs_diff"] = float((a - c).abs().max())
+        check(excess <= WKV_TOL, f"chunked WKV {name} differs from the "
+              f"sequential recurrence past rtol = atol = {WKV_TOL}: "
+              f"{out[f'{name}_max_abs_diff']:.3g}")
+    print(f"  WKV {out['shape']} ({out['chunks']} chunks, the last ragged): "
+          f"chunked == sequential within {WKV_TOL} (y "
+          f"{out['y_max_abs_diff']:.3g}, S {out['S_max_abs_diff']:.3g})",
+          flush=True)
+    return out
+
+
+def _prefill_ms(torch, TLM, params, cfg, prompt, max_len, dev) -> list:
+    """Host ms of SSM_PREFILL_REPS prefills of ``prompt`` into a fresh
+    batch-1 cache (the engine's admission prefill without the queue)."""
+    toks = torch.as_tensor(prompt[None], dtype=torch.int64, device=dev)
+    out = []
+    for _ in range(SSM_PREFILL_REPS):
+        with torch.no_grad():
+            cache = TLM.init_cache(cfg, 1, max_len, torch.float32, dev)
+            _sync(torch, dev)
+            t0 = time.perf_counter()
+            TLM.prefill(params, toks, cfg, cache)
+            _sync(torch, dev)
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def _cache_free_rows(torch, TLM, params, cfg, reqs, run, dev) -> dict:
+    """Every logits row a serving sampled against a cache-free forward over
+    the same tokens (one prefill of the whole sequence: the chunked WKV,
+    Mamba's scan and the attention over all of it): the largest difference
+    over the row's range. For rwkv6, the same against a forward with the
+    sequential WKV, and the two forwards against each other: the rounding
+    of the forms themselves. Rows are compared over the true vocab (the
+    padded entries hold the float32 minimum)."""
+    toks, rows = run
+    v = cfg.vocab
+    forms = {"forward": cfg}
+    if cfg.rwkv_chunked:
+        forms["sequential_wkv"] = dataclasses.replace(cfg, rwkv_chunked=False)
+    out = {"rows": 0, **{f"served_vs_{k}": 0.0 for k in forms}}
+    if len(forms) > 1:
+        out["forward_vs_sequential_wkv"] = 0.0
+
+    def over(a, b):
+        return float(np.abs(a - b).max() / max(float(np.ptp(b)), 1e-30))
+
+    with torch.no_grad():
+        for rid, prompt, _ in reqs:
+            seq = np.concatenate([prompt, np.asarray(toks[rid][:-1],
+                                                     np.int32)])
+            x = TLM.embed_tokens(params, torch.as_tensor(
+                seq[None], dtype=torch.int64, device=dev), cfg)
+            pos = [len(prompt) - 1 + j for j in range(len(toks[rid]))]
+            refs = {}
+            for key, c in forms.items():
+                h, _, _ = TLM.backbone(params, x, c)
+                refs[key] = TLM.lm_logits(params, h[:, pos],
+                                          c)[0].float().cpu().numpy()
+                del h
+            for j in range(len(pos)):
+                for key, ref in refs.items():
+                    out[f"served_vs_{key}"] = max(
+                        out[f"served_vs_{key}"],
+                        over(rows[(rid, j)][:v], ref[j, :v]))
+                if len(refs) > 1:
+                    out["forward_vs_sequential_wkv"] = max(
+                        out["forward_vs_sequential_wkv"],
+                        over(refs["forward"][j, :v],
+                             refs["sequential_wkv"][j, :v]))
+            out["rows"] += len(pos)
+    return out
+
+
+def _ssm_arch(torch, dev, full, ops, arch, launches) -> dict:
+    """One SSM arch (see the module docstring, phase 12)."""
+    import dataclasses
+    from repro_torch.configs import registry
+    from repro_torch.core import factor as F
+    from repro_torch.kernels import approx_matmul as K
+    from repro_torch.models import transformer_lm as TLM
+    from repro_torch.nn.module import n_params
+    from repro_torch.quant import matmul as QM
+    from repro_torch.quant.quantize import for_lm
+    from repro_torch.serve import engine as PE
+
+    fac = F.factorize("proposed")
+    if full:
+        cfg0 = registry.get(arch)
+        fields, count = SSM_ARCHS[arch]
+        check((cfg0.n_layers, cfg0.d_model, cfg0.n_heads, cfg0.n_kv_heads,
+               cfg0.d_ff, cfg0.vocab, cfg0.local_window) == fields
+              and n_params(TLM.descs(cfg0)) == count
+              and cfg0.param_dtype == torch.bfloat16,
+              f"unexpected {arch} config {cfg0}")
+    else:       # a window longer than the smoke workload's cache, as 1,024
+        cfg0 = registry.reduced(arch, n_layers=6, param_dtype=torch.bfloat16,
+                                local_window=64 if arch == "hymba-1.5b"
+                                else 0)
+    label = f"{arch} L{cfg0.n_layers}"
+    params, init = _init_arch(torch, TLM, cfg0, dev)
+    out = {"config": {"arch": arch, "n_layers": cfg0.n_layers,
+                      "blocks": cfg0.blocks(), "d_model": cfg0.d_model,
+                      "vocab": cfg0.vocab, "window": cfg0.local_window,
+                      "params": n_params(TLM.descs(cfg0)),
+                      "param_dtype": str(cfg0.param_dtype),
+                      "seed": ARCH_SEED}, **init}
+    print(f"  {arch} {out['config']['params']:,} parameters drawn in "
+          f"{init['init_s']:.1f} s (peak {init['init_peak_gb']} GiB)",
+          flush=True)
+    reqs, slots, max_len = ssm_workload(arch, cfg0.vocab, full)
+    longest = max(reqs, key=lambda r: len(r[1]))[1]
+
+    # --- the whole model, unpaged at exact prompt lengths
+    runs, out["whole"] = {}, {}
+    for be in SSM_BACKENDS:
+        cfg = dataclasses.replace(cfg0, quant=for_lm(be))
+        eng, toks, rec, stats, peak = _serve_arch(
+            torch, PE, K, cfg, params, reqs, slots, max_len, dev, launches)
+        check(eng.prefix is None and not PE.padded_prefill_ok(cfg),
+              f"{label} served with the prefix cache")
+        check(stats["waves"] >= 2, f"{label} {be}: no mid-decode admission")
+        runs[be] = (toks, rec.rows)
+        row = _serving_row(rec, stats, peak, reqs)
+        row["prefill_ms"] = _prefill_ms(torch, TLM, params, cfg, longest,
+                                        max_len, dev)
+        row["prefill_tokens"] = len(longest)
+        if dev == "cuda":
+            row.update(_arch_step(torch, K, eng, params, cfg,
+                                  [40, 50, 60, 70], be, ops, fac))
+        out["whole"][be] = row
+        _print_arch(label, be, row)
+        print(f"  {label} {be:22s} prefill of {len(longest)} tokens: median "
+              f"{statistics.median(row['prefill_ms']):.1f} ms", flush=True)
+        del eng, rec
+    cfg = dataclasses.replace(cfg0, quant=for_lm("bf16"))
+    free = {"bfloat16_weights": _cache_free_rows(
+        torch, TLM, params, cfg, reqs, runs["bf16"], dev)}
+    # the same draw in float32: served under bf16 again, and held
+    cfg = dataclasses.replace(cfg, param_dtype=torch.float32)
+    params32 = TLM.map_leaves(lambda t: t.float(), params)
+    _, toks, rec, _, _ = _serve_arch(torch, PE, K, cfg, params32, reqs, slots,
+                                     max_len, dev, launches)
+    free["float32_weights"] = _cache_free_rows(
+        torch, TLM, params32, cfg, reqs, (toks, rec.rows), dev)
+    del rec, params32
+    free["rtol"] = SSM_RTOL
+    worst = free["float32_weights"]["served_vs_forward"]
+    check(worst <= SSM_RTOL,
+          f"{label}: served rows (float32 weights) differ from the "
+          f"cache-free forward by {worst:.3g} of their range (tolerance "
+          f"{SSM_RTOL})")
+    out["whole"]["bf16_vs_cache_free"] = free
+    print(f"  {label} bf16: all {free['float32_weights']['rows']} sampled "
+          f"rows within {worst:.3g} of their range of the cache-free forward "
+          f"with float32 weights (tolerance {SSM_RTOL}); with bfloat16 "
+          "weights " + ", ".join(f"{k} {v:.3g}" for k, v in
+                                 free["bfloat16_weights"].items()
+                                 if k != "rows"), flush=True)
+
+    # --- the first SSM_DEPTH layers: each CUDA backend == its oracle
+    cfg4 = dataclasses.replace(cfg0, n_layers=SSM_DEPTH)
+    params4 = {**params, "blocks": [TLM.map_leaves(
+        lambda t: t[:SSM_DEPTH], params["blocks"][0])]}
+    oruns, out["depth"] = {}, {"n_layers": SSM_DEPTH}
+    for be in SSM_ORACLES + CUDA_BACKENDS:
+        cfg = dataclasses.replace(cfg4, quant=for_lm(be))
+        t0 = time.perf_counter()
+        _, toks, rec, stats, _ = _serve_arch(
+            torch, PE, K, cfg, params4, reqs, slots, max_len, dev, launches)
+        oruns[be] = (toks, rec.rows)
+        out["depth"].setdefault("serving_s", {})[be] = \
+            time.perf_counter() - t0
+        out["depth"].setdefault("decode_step_ms_median", {})[be] = \
+            statistics.median(rec.step_ms)
+        del rec
+    for be in CUDA_BACKENDS:
+        out["depth"].setdefault("oracle_bitwise_rows", {})[be] = \
+            _bitwise_runs(f"{arch} L{SSM_DEPTH}", oruns, be,
+                          QM.get_backend(be).oracle)
+    out["depth"]["deficit_rank1_bitwise_rows"] = _bitwise_runs(
+        f"{arch} L{SSM_DEPTH}", oruns, "approx_deficit_pallas",
+        "approx_rank1_pallas")
+    print(f"  {arch} L{SSM_DEPTH}: each CUDA backend's tokens and all "
+          f"{out['depth']['deficit_rank1_bitwise_rows']} sampled logits rows "
+          "bitwise equal to its oracle's; deficit == rank1", flush=True)
+    out["serving"] = {"slots": slots, "max_len": max_len,
+                      "requests": len(reqs),
+                      "prompt_lens": [len(p) for _, p, _ in reqs],
+                      "max_new": [m for _, _, m in reqs],
+                      "cache_dtype": "float32"}
+    return out
+
+
+def ssm_phase(torch, detail, dev: str, full: bool, ops=None) -> tuple:
+    """rwkv6-3b and hymba-1.5b (see the module docstring, phase 12):
+    ``full`` serves the published configs from seed 0 on the card; without
+    it the reduced ones (6 layers, hymba's window 64) on the CPU. Returns
+    the ssm line and the path's kernel launches."""
+    from repro_torch.kernels import approx_matmul as K
+    from repro_torch.nn import ssm as SSM
+
+    launches = {key: 0 for key in launch_counts(K)}
+    out = {"wkv": wkv_check(torch, SSM, dev, full)}
+    for arch in SSM_ARCHS:
+        out[arch] = _ssm_arch(torch, dev, full, ops, arch, launches)
+        if dev == "cuda":
+            torch.cuda.empty_cache()
+    detail["ssm"] = out
     return out, launches
 
 

@@ -5,8 +5,9 @@ after the JAX package's ``repro.configs.registry``.
 multiple of 256; logits are masked back to the true vocab). ``reduced(name)``
 returns a tiny same-family config for CPU tests (the same code paths).
 The port runs the dense global-attention families, gemma3's windowed
-ring buffer and the MLA / mixture-of-experts families; every other name of
-``ARCH_NAMES`` raises ``NotImplementedError`` naming its ROADMAP item.
+ring buffer, the MLA / mixture-of-experts families and the SSM families
+(rwkv6, hymba); every other name of ``ARCH_NAMES`` raises
+``NotImplementedError`` naming its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -18,20 +19,20 @@ import torch
 from repro_torch.models.transformer_lm import ArchConfig
 
 _MODULES = {
+    "hymba-1.5b": "hymba_1p5b",
     "smollm-135m": "smollm_135m",
     "deepseek-coder-33b": "deepseek_coder_33b",
     "qwen1.5-32b": "qwen15_32b",
     "gemma3-27b": "gemma3_27b",
     "kimi-k2-1t-a32b": "kimi_k2_1t",
     "deepseek-v2-236b": "deepseek_v2_236b",
+    "rwkv6-3b": "rwkv6_3b",
 }
 
 # the JAX package's other configurations, and the ROADMAP item that ports
 # what each needs
 NOT_PORTED = {
-    "hymba-1.5b": "SSM layers: ROADMAP.md queue A, item 18",
     "llama-3.2-vision-11b": "cross-attention: ROADMAP.md queue A, item 19",
-    "rwkv6-3b": "SSM layers: ROADMAP.md queue A, item 18",
     "musicgen-large": "multi-codebook heads: ROADMAP.md queue A, item 19",
 }
 
@@ -63,7 +64,8 @@ def get(name: str, **overrides) -> ArchConfig:
 def reduced(name: str, **overrides) -> ArchConfig:
     """Tiny same-family config: the same code paths on the CPU, sized as
     the reference's ``reduced`` sizes them (one whole 5:1 group for
-    gemma3, 8 experts, a window of 8, a 32-wide MLA latent). ``get``
+    gemma3, 8 experts, a window of 8, a 32-wide MLA latent; rwkv6 keeps
+    its chunked WKV, hymba its state of 16 and one KV head). ``get``
     refuses the names the port does not run."""
     cfg = get(name)
     pattern = cfg.local_ratio + 1 if cfg.local_ratio else 0

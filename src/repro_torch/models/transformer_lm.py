@@ -1,7 +1,8 @@
 """The decoder LM of the JAX package's ``repro.models.transformer_lm``, for
 the dense global-attention families (smollm, qwen1.5, deepseek-coder),
-gemma3's 5:1 local:global sliding window, and the mixture-of-experts
-families with GQA (kimi-k2) or MLA (deepseek-v2) attention.
+gemma3's 5:1 local:global sliding window, the mixture-of-experts families
+with GQA (kimi-k2) or MLA (deepseek-v2) attention, the attention-free
+RWKV6 and hymba's hybrid of windowed attention and Mamba.
 
 A config compiles to a "block program": a list of (repeat, [layer kinds])
 groups:
@@ -9,20 +10,26 @@ groups:
   dense / moe :  [(L, ('self',))]
   gemma3 5:1  :  [(L // 6, ('local',) * 5 + ('global',)),
                   (1, ('global',) * (L % 6))]
+  rwkv6       :  [(L, ('rwkv',))]
+  hymba       :  [(L, ('hymba',))]
 
 Each group's params are stacked on a leading ``repeat`` axis, in the
 reference's layout, so that weights carry across by a tree map
 (``repro_torch.convert``). Where the reference scans over the stacked axis,
 ``backbone`` runs a Python loop over it; caches mirror the block program
-and are indexed the same way, and are written in place.
+and are indexed the same way, and are written in place. An SSM layer's
+cache is its recurrent state (``nn/ssm.py``), float32 whatever the cache
+dtype: RWKV6's WKV state and the two token-shift rows, hymba's Mamba state
+and conv rows beside its attention ring.
 
-Every projection (QKV, attention output, MLP, the LM head) runs through
-``quantized_matmul``, and so through the backend registry: the approximate
-multiplier's CUDA kernels on the card, under the ``*_pallas`` backends.
+Every projection (QKV, attention output, MLP, the SSM mixers', the LM head)
+runs through ``quantized_matmul``, and so through the backend registry:
+the approximate multiplier's CUDA kernels on the card, under the
+``*_pallas`` backends.
 
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-item): cross-attention (llama-3.2 vision), the SSM layers (rwkv6, hymba),
-stub embeddings and multi-codebook heads (musicgen).
+item): cross-attention (llama-3.2 vision), stub embeddings and
+multi-codebook heads (musicgen).
 """
 from __future__ import annotations
 
@@ -38,13 +45,12 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.nn import attention as A
 from repro_torch.nn import layers as L
 from repro_torch.nn import moe as MOE
+from repro_torch.nn import ssm as SSM
 from repro_torch.nn.module import (ParamDesc, init_params, resolve_device,
                                    stack)
 from repro_torch.quant.quantize import BF16, QuantConfig
 
 NOT_PORTED = {
-    "ssm": "SSM layers (rwkv6, hymba) are not ported yet: ROADMAP.md "
-           "queue A, item 18",
     "io": "stub embeddings and multi-codebook heads (musicgen) are not "
           "ported yet: ROADMAP.md queue A, item 19",
 }
@@ -108,13 +114,14 @@ class ArchConfig:
 
     def attn_cfg(self, kind: str = "self") -> A.AttnConfig:
         """The attention of a layer of ``kind`` ('self', 'local',
-        'global'; 'cross' is passed on so that ``A.check_ported`` refuses
-        it)."""
+        'global', hymba's windowed 'hymba_attn'; 'cross' is passed on so
+        that ``A.check_ported`` refuses it)."""
         return A.AttnConfig(
             d_model=self.d_model, n_heads=self.n_heads,
             n_kv_heads=self.n_kv_heads, head_dim=self.dh,
             rope_theta=self.rope_theta, qkv_bias=self.qkv_bias,
-            window=self.local_window if kind == "local" else 0,
+            window=(self.local_window if kind in ("local", "hymba_attn")
+                    else 0),
             cross=(kind == "cross"), p_bf16=self.attn_p_bf16,
             kv_lora=self.kv_lora, qk_nope=self.qk_nope if self.kv_lora else 0,
             qk_rope=self.qk_rope if self.kv_lora else 0,
@@ -127,9 +134,22 @@ class ArchConfig:
                              int8_gather=self.moe_int8_gather,
                              capacity_factor=self.moe_capacity)
 
+    def rwkv_cfg(self) -> SSM.RWKVConfig:
+        """RWKV6's head_dim is d_model // n_heads, not ``dh``."""
+        return SSM.RWKVConfig(d_model=self.d_model, n_heads=self.n_heads)
+
+    def mamba_cfg(self) -> SSM.MambaConfig:
+        """d_inner = d_model, as in the reference."""
+        return SSM.MambaConfig(d_model=self.d_model, d_inner=self.d_model,
+                               n_state=self.ssm_state)
+
     # ---- block program ----
     def blocks(self) -> List[Tuple[int, Tuple[str, ...]]]:
         Lc = self.n_layers
+        if self.ssm == "rwkv6":
+            return [(Lc, ("rwkv",))]
+        if self.ssm == "hymba":
+            return [(Lc, ("hymba",))]
         if self.local_ratio:
             per = self.local_ratio + 1
             n_groups, rem = divmod(Lc, per)
@@ -149,8 +169,6 @@ class ArchConfig:
 
 def check_ported(cfg: ArchConfig) -> None:
     """Raise for every part of ``cfg`` this port does not run yet."""
-    if cfg.ssm:
-        raise NotImplementedError(NOT_PORTED["ssm"])
     if cfg.embed_stub or cfg.n_codebooks > 1:
         raise NotImplementedError(NOT_PORTED["io"])
     for _, kinds in cfg.blocks():
@@ -174,8 +192,17 @@ def _mlp_desc(cfg: ArchConfig, dtype):
 
 def _layer_desc(cfg: ArchConfig, kind: str, dtype):
     d: Dict[str, Any] = {"ln1": L.rmsnorm_desc(cfg.d_model, dtype),
-                         "ln2": L.rmsnorm_desc(cfg.d_model, dtype),
-                         "attn": A.attn_desc(cfg.attn_cfg(kind), dtype)}
+                         "ln2": L.rmsnorm_desc(cfg.d_model, dtype)}
+    if kind == "rwkv":
+        d["tmix"] = SSM.rwkv_tmix_desc(cfg.rwkv_cfg(), dtype)
+        d["cmix"] = SSM.rwkv_cmix_desc(cfg.d_model, cfg.d_ff, dtype)
+        return d
+    if kind == "hymba":
+        d["attn"] = A.attn_desc(cfg.attn_cfg("hymba_attn"), dtype)
+        d["mamba"] = SSM.mamba_desc(cfg.mamba_cfg(), dtype)
+        d["mlp"] = _mlp_desc(cfg, dtype)
+        return d
+    d["attn"] = A.attn_desc(cfg.attn_cfg(kind), dtype)
     if cfg.n_experts:
         d["moe"] = MOE.moe_desc(cfg.moe_cfg(), dtype)
     else:
@@ -215,17 +242,42 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int,
     """Cache tree mirroring the block program (stacked per group), zero:
     k/v leaves (repeat, batch, slots, Hkv, Dh), with slots = max_len for
     global layers and min(window, max_len) for local ones; MLA's ckv / kpe
-    leaves (repeat, batch, max_len, kv_lora | rope_dim)."""
+    leaves (repeat, batch, max_len, kv_lora | rope_dim); an SSM layer's
+    state (``_kind_cache``)."""
     check_ported(cfg)
     dev = resolve_device(device)
     blocks = []
     for rep, kinds in cfg.blocks():
-        group = {f"k{i}_{kind}": A.init_cache(cfg.attn_cfg(kind), batch,
-                                              max_len, dtype, dev)
+        group = {f"k{i}_{kind}": _kind_cache(cfg, kind, batch, max_len,
+                                             dtype, dev)
                  for i, kind in enumerate(kinds)}
         blocks.append(map_leaves(lambda t: t.expand(rep, *t.shape).clone(),
                                  group))
     return {"blocks": blocks}
+
+
+def _kind_cache(cfg: ArchConfig, kind: str, batch: int, max_len: int,
+                dtype, dev):
+    """One layer's cache. An SSM state has no positions and is float32
+    whatever ``dtype``: RWKV6's WKV state S (batch, H, N, N) with its two
+    token-shift rows xprev / cm_xprev (batch, D); hymba's attention cache
+    (a ring of min(window, max_len) slots) beside Mamba's state h
+    (batch, d_inner, n_state) and its last conv inputs (batch, conv_k - 1,
+    d_inner)."""
+    f32 = dict(dtype=torch.float32, device=dev)
+    if kind == "rwkv":
+        H, N = cfg.n_heads, cfg.rwkv_cfg().head_dim
+        return {"S": torch.zeros((batch, H, N, N), **f32),
+                "xprev": torch.zeros((batch, cfg.d_model), **f32),
+                "cm_xprev": torch.zeros((batch, cfg.d_model), **f32)}
+    if kind == "hymba":
+        mc = cfg.mamba_cfg()
+        return {"attn": A.init_cache(cfg.attn_cfg("hymba_attn"), batch,
+                                     max_len, dtype, dev),
+                "h": torch.zeros((batch, mc.d_inner, mc.n_state), **f32),
+                "conv": torch.zeros((batch, mc.conv_k - 1, mc.d_inner),
+                                    **f32)}
+    return A.init_cache(cfg.attn_cfg(kind), batch, max_len, dtype, dev)
 
 
 def map_leaves(fn, *trees):
@@ -241,7 +293,9 @@ def map_leaves(fn, *trees):
 
 def write_slot(pool, one, slot: int):
     """Full-row copy of a freshly prefilled batch-1 cache ``one`` into row
-    ``slot`` of the cache pool, in place; returns the pool."""
+    ``slot`` of the cache pool, in place; returns the pool. Every leaf is
+    copied whole, an SSM state too: a parked slot folds junk into its
+    state at every decode step, and admission overwrites all of it."""
     def leaf(p, o):
         p[:, slot] = o[:, 0]
         return p
@@ -276,6 +330,10 @@ def _layer(params, x, kind: str, cfg: ArchConfig, *, cache, pos, qat,
     """One layer -> (x, aux). ``columns`` is :func:`verify_step`'s: the
     norms, MLA attention and a mixture-of-experts layer run once per
     sequence column."""
+    if kind == "rwkv":
+        return _rwkv_layer(params, x, cfg, cache=cache, qat=qat)
+    if kind == "hymba":
+        return _hymba_layer(params, x, cfg, cache=cache, pos=pos, qat=qat)
     norm = _rmsnorm_columns if columns else L.rmsnorm
     h = norm(params["ln1"], x)
     acfg = cfg.attn_cfg(kind)
@@ -299,6 +357,47 @@ def _layer(params, x, kind: str, cfg: ArchConfig, *, cache, pos, qat,
                       qat=qat) for j in range(h2.shape[1])]
     return (x + torch.cat([o for o, _ in outs], dim=1),
             sum(a for _, a in outs))
+
+
+def _store(cache, **state) -> None:
+    """Write an SSM layer's new state into its cache leaves, in place."""
+    for name, t in state.items():
+        cache[name].copy_(t)
+
+
+def _rwkv_layer(params, x, cfg: ArchConfig, *, cache, qat):
+    """Time mix, then channel mix, each behind its RMS norm and residual;
+    the WKV state and both token-shift rows carried in ``cache``."""
+    h = L.rmsnorm(params["ln1"], x)
+    st = None if cache is None else {"S": cache["S"],
+                                     "xprev": cache["xprev"]}
+    mix, new = SSM.rwkv_tmix(params["tmix"], h, cfg.rwkv_cfg(), cfg.quant,
+                             state=st, qat=qat, chunked=cfg.rwkv_chunked)
+    x = x + mix
+    h2 = L.rmsnorm(params["ln2"], x)
+    ff, cm_x = SSM.rwkv_cmix(params["cmix"], h2, cfg.quant,
+                             xprev=None if cache is None
+                             else cache["cm_xprev"], qat=qat)
+    if cache is not None:
+        _store(cache, S=new["S"], xprev=new["xprev"], cm_xprev=cm_x)
+    return x + ff, _zero(x)
+
+
+def _hymba_layer(params, x, cfg: ArchConfig, *, cache, pos, qat):
+    """Windowed attention and Mamba side by side on the same normed input,
+    averaged into the residual, then the MLP."""
+    h = L.rmsnorm(params["ln1"], x)
+    ao, _ = A.apply(params["attn"], h, cfg.attn_cfg("hymba_attn"),
+                    cfg.quant, cache=None if cache is None else cache["attn"],
+                    pos=pos, qat=qat)
+    st = None if cache is None else {"h": cache["h"], "conv": cache["conv"]}
+    so, new = SSM.mamba(params["mamba"], h, cfg.mamba_cfg(), cfg.quant,
+                        state=st, qat=qat)
+    if cache is not None:
+        _store(cache, **new)
+    x = x + 0.5 * (ao + so)                      # parallel heads fusion
+    h2 = L.rmsnorm(params["ln2"], x)
+    return x + _mlp(params["mlp"], h2, cfg, qat), _zero(x)
 
 
 def _column(x, j: int):
@@ -333,7 +432,7 @@ def backbone(params, x, cfg: ArchConfig, *, caches=None, pos=None,
             for i, kind in enumerate(kinds):
                 key = f"k{i}_{kind}"
                 c = (None if bcache is None else
-                     {n: t[r] for n, t in bcache[key].items()})
+                     map_leaves(lambda t: t[r], bcache[key]))
                 fn = functools.partial(_layer, kind=kind, cfg=cfg, cache=c,
                                        pos=pos, qat=qat, columns=columns)
                 x, a = (checkpoint(fn, lp[key], x, use_reentrant=False)
@@ -415,15 +514,20 @@ def position_indexed(cfg: ArchConfig) -> bool:
     return cfg.ssm == "" and cfg.local_ratio == 0 and cfg.local_window == 0
 
 
+WINDOWED = {"local": "local", "hymba": "hymba_attn"}   # kind -> attention
+
+
 def prefill_limit(cfg: ArchConfig, max_len: int):
     """The longest prefill a cache of ``max_len`` positions takes: the
-    window, where a local layer's ring holds the whole window
-    (``nn.attention`` refuses a longer write); None where only
-    ``max_len`` bounds it."""
-    if any("local" in kinds for _, kinds in cfg.blocks()) \
-            and A.is_ring(cfg.attn_cfg("local"),
-                          min(cfg.local_window, max_len)):
-        return cfg.local_window
+    window, where a windowed layer's ring (gemma3's local layers, hymba's
+    attention) holds the whole window (``nn.attention`` refuses a longer
+    write); None where only ``max_len`` bounds it."""
+    for _, kinds in cfg.blocks():
+        for kind in kinds:
+            if kind in WINDOWED:
+                acfg = cfg.attn_cfg(WINDOWED[kind])
+                if A.is_ring(acfg, min(acfg.window, max_len)):
+                    return acfg.window
     return None
 
 

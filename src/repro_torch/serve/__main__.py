@@ -3,6 +3,7 @@
     python -m repro_torch.serve [--backend approx_deficit_pallas]
     python -m repro_torch.serve --device cpu --reduced
     python -m repro_torch.serve --sampling top_k --top-k 8
+    python -m repro_torch.serve --arch rwkv6-3b [--device cpu --reduced]
 
 The port's counterpart of the JAX package's ``examples/serve_lm.py``: a
 mixed-length request queue is served through the fixed-slot KV pool, with
@@ -10,7 +11,9 @@ the approximate multiplier as the quant backend of every projection (QKV,
 attention output, MLP, LM head) under per-token activation scales. The
 model is full-width smollm-135m by default (``--arch``), with random
 weights from ``--seed``; ``--reduced`` serves the example's 4-layer,
-128-wide config instead. It runs on the card unless ``--device cpu``.
+128-wide config instead; a windowed arch's prompts are drawn no longer
+than its ring (hymba's reduced window is 8). It runs on the card unless
+``--device cpu``.
 """
 from __future__ import annotations
 
@@ -76,8 +79,12 @@ def main(argv=None) -> dict:
                  prefix_caching=not args.no_prefix_cache, device=args.device)
     rng = np.random.default_rng(args.seed)
     shared = rng.integers(0, cfg.vocab, args.shared_prefix).astype(np.int32)
+    # a windowed ring takes a prompt of at most its window
+    limit = TLM.prefill_limit(cfg, eng.max_len)
     for rid in range(args.requests):
         plen = int(rng.integers(4, 17))          # mixed-length workload
+        if limit is not None:
+            plen = max(1, min(plen, limit - len(shared)))
         prompt = np.concatenate(
             [shared, rng.integers(0, cfg.vocab, plen).astype(np.int32)])
         eng.submit(ServeRequest(

@@ -4,12 +4,15 @@ registry, after the JAX package's ``repro.serve.engine``.
 Fixed-slot decode over a block-paged persistent KV store:
 
   * one decode workspace, allocated once: every cache leaf has a ``slots``
-    batch axis and ``max_len`` positions; a request owns exactly one slot
-    row from admission to finish and all its decode writes land there
+    batch axis; an attention leaf has ``max_len`` positions (a windowed
+    ring min(window, max_len)), an SSM state (RWKV6's, Mamba's) is a row
+    with no positions, float32; a request owns exactly one slot row from
+    admission to finish and all its decode writes land there
   * decode advances ALL slots each step with a per-slot position vector
     (``models/transformer_lm.decode_step`` with ``pos: (slots,)``); parked
-    (free) slots run token 0 at position 0 and their writes are overwritten
-    at the next admission
+    (free) slots run token 0 at position 0, writing junk into their KV and
+    folding it into their SSM state, and admission overwrites the whole
+    row, every leaf
   * admission (``scheduler.SlotScheduler``) happens between decode steps:
     a freed slot is refilled at once under the 'continuous' policy instead
     of waiting for the wave to drain
@@ -83,9 +86,10 @@ def padded_prefill_ok(cfg: ArchConfig) -> bool:
     """Whether prompts may be padded to a length bucket at prefill, and
     whether the prefix cache may page the KV: only position-indexed caches
     (global GQA, MLA) mask padded junk by absolute position and have
-    per-position KV to page. Windowed archs (gemma3) prefill at the exact
-    prompt length and serve unpaged. The same predicate as the
-    reference's."""
+    per-position KV to page. Windowed archs (gemma3) and the SSM archs
+    (rwkv6, hymba: a state folds every token in, padding included) prefill
+    at the exact prompt length and serve unpaged. The same predicate as
+    the reference's."""
     return TLM.position_indexed(cfg)
 
 

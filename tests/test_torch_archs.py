@@ -1,11 +1,14 @@
 """The port's windowed ring-buffer attention, MLA, mixture-of-experts layer
-and the three archs that use them (gemma3-27b, deepseek-v2-236b,
-kimi-k2-1t-a32b) against the JAX package's, on the same numpy inputs.
+and the archs that use them (gemma3-27b, deepseek-v2-236b,
+kimi-k2-1t-a32b), and the SSM archs (rwkv6-3b, hymba-1.5b; their mixers are
+held in ``tests/test_torch_ssm.py``), against the JAX package's, on the
+same numpy inputs.
 
 The archs are ``registry.reduced``'s (d_model 128, a window of 8 over one
-whole 5:1 gemma3 group, 8 experts top-2 with one shared, a 32-wide MLA
-latent); their weights are the JAX package's ``TLM.init`` at key 0, carried
-across by ``repro_torch.convert``. Where the port runs a backend with an
+whole 5:1 gemma3 group and over hymba's attention, 8 experts top-2 with
+one shared, a 32-wide MLA latent, rwkv6's chunked WKV); their weights are
+the JAX package's ``TLM.init`` at key 0, carried across by
+``repro_torch.convert``. Where the port runs a backend with an
 oracle, the JAX side runs the oracle (``approx_lut`` for
 ``approx_deficit_pallas``): the JAX package's own tests hold its Pallas
 entries to their oracles bit for bit, and its interpret mode takes minutes
@@ -62,7 +65,8 @@ torch.set_num_threads(1)
 
 RQ = importlib.import_module("repro.quant.quantize")
 
-ARCHS = ("gemma3-27b", "deepseek-v2-236b", "kimi-k2-1t-a32b")
+ARCHS = ("gemma3-27b", "deepseek-v2-236b", "kimi-k2-1t-a32b", "rwkv6-3b",
+         "hymba-1.5b")
 BACKENDS = ("bf16", "approx_lut", "approx_deficit_pallas")
 FLOAT_RTOL = 1e-5
 QUANT_RTOL = 2e-2
@@ -323,6 +327,14 @@ def test_init_and_cache_trees_match_reference(arch):
     if arch == "gemma3-27b":
         assert pc["blocks"][0]["k0_local"]["k"].shape[2] == 8
         assert pc["blocks"][0]["k5_global"]["k"].shape[2] == 20
+    if arch == "hymba-1.5b":
+        assert pc["blocks"][0]["k0_hymba"]["attn"]["k"].shape[2] == 8
+    if pcfg.ssm:     # recurrent states are float32 whatever the cache dtype
+        bf = PT.init_cache(pcfg, 1, 20, torch.bfloat16, "cpu")["blocks"][0]
+        key = next(iter(bf))
+        assert {n: t.dtype for n, t in bf[key].items() if n != "attn"} == \
+            dict.fromkeys(("S", "xprev", "cm_xprev") if arch == "rwkv6-3b"
+                          else ("h", "conv"), torch.float32)
 
 
 DECODE_STEPS = [np.array([6 + i, 4 + i]) for i in range(6)]
@@ -430,7 +442,8 @@ def test_projection_codes_and_accumulators_bitwise(monkeypatch, arch):
         PT.prefill(pparams, torch.from_numpy(_tokens()[:1, :8]).long(), cfg,
                    PT.init_cache(cfg, 1, RING_MAX_LEN, torch.float32, "cpu"))
     n_proj = {"gemma3-27b": 7 * 6, "deepseek-v2-236b": 3 * 2,
-              "kimi-k2-1t-a32b": 4 * 2}[arch]
+              "kimi-k2-1t-a32b": 4 * 2, "rwkv6-3b": 8 * 2,
+              "hymba-1.5b": 10 * 2}[arch]
     assert len(spy.calls) == n_proj + 1
     for i, (x, w) in enumerate(spy.calls):
         x2 = x.reshape(-1, x.shape[-1])

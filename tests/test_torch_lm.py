@@ -61,7 +61,7 @@ BF16_LOGIT_RTOL = 3e-2
 TINY = dict(n_layers=2, d_model=64, n_heads=4, n_kv_heads=2, d_ff=128,
             vocab=64, vocab_pad=64, head_dim=16)
 PORTED = ("smollm-135m", "qwen1.5-32b", "deepseek-coder-33b", "gemma3-27b",
-          "deepseek-v2-236b", "kimi-k2-1t-a32b")
+          "deepseek-v2-236b", "kimi-k2-1t-a32b", "rwkv6-3b", "hymba-1.5b")
 LOGIT_BACKENDS = ("bf16", "int8_exact", "approx_lut", "approx_stage1",
                   "msr4", "approx_deficit_pallas", "approx_stage1_pallas",
                   "approx_rank1_pallas")
@@ -158,8 +158,10 @@ def test_descs_match_reference(arch):
     assert got == want
     assert M.n_params(PT.descs(PR.get(arch))) == RM.n_params(
         RT.descs(RR.get(arch)))
-    if arch == "smollm-135m":
-        assert M.n_params(PT.descs(PR.get(arch))) == 134_515_008
+    full = {"smollm-135m": 134_515_008, "rwkv6-3b": 3_099_527_680,
+            "hymba-1.5b": 1_345_537_600}
+    if arch in full:
+        assert M.n_params(PT.descs(PR.get(arch))) == full[arch]
 
 
 def test_stacked_init_scale_follows_the_reference():
@@ -372,7 +374,7 @@ def test_attention_prefill_then_vector_pos_decode(backend):
 
 def test_unported_attention_and_layers_raise():
     base = PR.reduced("smollm-135m", **TINY)
-    for over in ({"cross_every": 2}, {"ssm": "rwkv6"}, {"n_codebooks": 2},
+    for over in ({"cross_every": 2}, {"n_codebooks": 2},
                  {"embed_stub": True}):
         with pytest.raises(NotImplementedError,
                            match="ROADMAP.md queue A, item 1[89]"):

@@ -1,6 +1,8 @@
 """The serving engine over the windowed, MLA and mixture-of-experts archs
-(gemma3-27b, deepseek-v2-236b, kimi-k2-1t-a32b) at ``registry.reduced``'s
-size, against the JAX package's engine and against its own invariances.
+(gemma3-27b, deepseek-v2-236b, kimi-k2-1t-a32b) and the SSM archs
+(rwkv6-3b, hymba-1.5b) at ``registry.reduced``'s size, against the JAX
+package's engine (the SSM archs: its prefill / decode_step) and against
+its own invariances.
 
 Weights are the JAX package's ``TLM.init`` at key 0 carried across by
 ``repro_torch.convert``; where the port runs a ``*_pallas`` backend (on the
@@ -22,7 +24,11 @@ What is claimed, at the token level:
     model's flat logits follow (measured on this workload: under
     approx_stage1 request 3's prefill row differs by 1.0e-2 against a
     top-2 gap of 1.9e-3, and its first token differs).
-The MoE archs' tokens are held, not their logits rows: a mixture-of-
+The SSM archs serve unpaged at exact prompt lengths, as gemma3 does: a
+request's tokens equal those of the request alone and the JAX package's,
+under bf16 and approx_stage1_pallas (on this workload the quantized tokens
+agree too); admission overwrites a slot's whole state. The MoE archs'
+tokens are held, not their logits rows: a mixture-of-
 experts layer sets its capacity per call group (``nn/moe.py``), so a
 suffix prefill on a prefix hit may drop other entries than a cold prefill
 does. The port's verify pass routes each column alone, as sequential
@@ -35,7 +41,11 @@ import numpy as np
 import pytest
 import torch
 
+import jax
+import jax.numpy as jnp
+
 from repro.configs import registry as RR
+from repro.models import transformer_lm as RT
 from repro.quant import matmul as RQM
 from repro.serve import engine as RE
 
@@ -43,6 +53,7 @@ import repro_torch.serve as PS
 from repro_torch.models import transformer_lm as PT
 from repro_torch.quant.quantize import for_lm
 from repro_torch.serve import Engine, SpecConfig
+from repro_torch.serve import __main__ as CLI
 
 from test_torch_archs import _arch    # the same weights, drawn once
 
@@ -203,3 +214,140 @@ def test_greedy_tokens_equal_the_reference_engine(arch, backend):
     assert got == want
     for key in ("prefix_hit_rate", "waves", "decode_steps"):
         assert stats[key] == want_stats[key], key
+
+
+# ---------------------------------------------------------------------------
+# The SSM archs: rwkv6 (recurrent state only) and hymba (a ring of 8 beside
+# the Mamba state)
+# ---------------------------------------------------------------------------
+
+SSM_ARCHS = ("rwkv6-3b", "hymba-1.5b")
+SSM_PROMPT = 6                   # within hymba's reduced window of 8; a
+#                                  padded prefill would take 8
+SSM_NEW = (6, 3, 5, 4)           # rid 1 retires first: rid 2 reuses its slot
+
+
+def _ssm_reqs(arch: str):
+    rng = np.random.default_rng(11)
+    vocab = RR.reduced(arch).vocab
+    return [PS.ServeRequest(rid=r, prompt=rng.integers(
+        0, vocab, SSM_PROMPT).astype(np.int32), max_new=m)
+        for r, m in enumerate(SSM_NEW)]
+
+
+def _port_alone(cfg, params, req) -> list:
+    """Greedy tokens of one request through the port's prefill and
+    decode_step on a batch-1 cache."""
+    with torch.no_grad():
+        cache = PT.init_cache(cfg, 1, MAX_LEN, torch.float32, "cpu")
+        lg, cache = PT.prefill(params, torch.from_numpy(req.prompt)[None]
+                               .long(), cfg, cache)
+        toks = [int(lg[0, -1].argmax())]
+        for j in range(req.max_new - 1):
+            lg, cache = PT.decode_step(params, torch.tensor([[toks[-1]]]),
+                                       len(req.prompt) + j, cfg, cache)
+            toks.append(int(lg[0, -1].argmax()))
+    return toks
+
+
+def _jax_greedy(arch, backend, reqs) -> dict:
+    """The requests' greedy tokens through the JAX package's prefill and
+    decode_step (the backend's oracle), all rows in one batch: the prompts
+    share a length, and each row of an SSM's or a ring's cache is its
+    own. Two compiles (prefill, decode) per arch and backend."""
+    rcfg, _, rparams, _ = _arch(arch)
+    oracle = backend if backend == "bf16" else \
+        RQM.get_backend(backend).oracle
+    cfg = dataclasses.replace(rcfg, quant=RQ.for_lm(oracle))
+    cache = RT.init_cache(cfg, len(reqs), MAX_LEN, jnp.float32)
+    lg, cache = jax.jit(lambda p, t, c: RT.prefill(p, t, cfg, c))(
+        rparams, jnp.asarray(np.stack([r.prompt for r in reqs])), cache)
+    dec = jax.jit(lambda p, t, pos, c: RT.decode_step(p, t, pos, cfg, c))
+    toks = [jnp.argmax(lg[:, -1], -1)]
+    for j in range(max(r.max_new for r in reqs) - 1):
+        lg, cache = dec(rparams, toks[-1][:, None],
+                        jnp.int32(SSM_PROMPT + j), cache)
+        toks.append(jnp.argmax(lg[:, -1], -1))
+    toks = np.stack([np.asarray(t) for t in toks], 1)
+    return {r.rid: toks[i, :r.max_new].tolist() for i, r in enumerate(reqs)}
+
+
+@pytest.mark.parametrize("arch", SSM_ARCHS)
+@pytest.mark.parametrize("backend", ["bf16", "approx_stage1_pallas"])
+def test_ssm_serving_equals_each_request_alone(arch, backend):
+    """4 requests into 2 slots (one admitted into a freed slot whose state
+    the parked decode steps filled with junk), unpaged, each prefilled at
+    its exact prompt length: every request's tokens equal that request
+    served alone by the port's prefill + decode_step, and the JAX
+    package's prefill / decode_step tokens on the same weights."""
+    cfg = dataclasses.replace(_arch(arch)[1], quant=for_lm(backend))
+    eng = Engine(cfg, _arch(arch)[3], slots=2, max_len=MAX_LEN,
+                 device="cpu")
+    assert eng.prefix is None and not PS.engine.padded_prefill_ok(cfg)
+    widths = []
+    inner = eng._prefill
+
+    def spy(p, toks, c, lengths, off):
+        widths.append(toks.shape[1])
+        return inner(p, toks, c, lengths, off)
+
+    eng._prefill = spy
+    for r in _ssm_reqs(arch):
+        eng.submit(r)
+    stats = eng.run()
+    assert widths == [SSM_PROMPT] * len(SSM_NEW)
+    assert stats["waves"] >= 2
+    got = {r.rid: list(r.output) for r in eng.completed}
+    for r in _ssm_reqs(arch):
+        assert got[r.rid] == _port_alone(cfg, _arch(arch)[3], r), r.rid
+    assert got == _jax_greedy(arch, backend, _ssm_reqs(arch))
+
+
+@pytest.mark.parametrize("arch", SSM_ARCHS)
+def test_ssm_admission_overwrites_the_whole_state(arch):
+    """write_slot copies every leaf of a fresh batch-1 cache over the
+    pool's row, the float32 SSM states (and hymba's ring) included, and
+    touches no other row."""
+    cfg = _arch(arch)[1]
+    pool = PT.map_leaves(lambda t: t.fill_(7.0),
+                         PT.init_cache(cfg, 3, MAX_LEN, torch.float32, "cpu"))
+    fresh = PT.init_cache(cfg, 1, MAX_LEN, torch.float32, "cpu")
+    PT.map_leaves(lambda t: t.normal_(), fresh)
+    PT.write_slot(pool, fresh, 1)
+    leaves = []
+    PT.map_leaves(lambda p, f: leaves.append((p, f)), pool, fresh)
+    assert len(leaves) == (3 if arch == "rwkv6-3b" else 4)
+    for p, f in leaves:
+        assert torch.equal(p[:, 1], f[:, 0])
+        assert bool((p[:, [0, 2]] == 7.0).all())
+
+
+@pytest.mark.parametrize("arch", SSM_ARCHS)
+def test_ssm_refuses_speculation_and_long_hymba_prompts(arch):
+    """An SSM state cannot roll back rejected positions: speculation is
+    refused at construction. hymba's attention is a ring of 8 slots at
+    max_len 32: a 9-token prompt is refused at submit; rwkv6 takes it."""
+    with pytest.raises(ValueError, match="position-indexed"):
+        _serve(arch, "bf16", [], spec=STAGE1)
+    cfg, params = _arch(arch)[1], _arch(arch)[3]
+    eng = Engine(cfg, params, slots=1, max_len=MAX_LEN, device="cpu")
+    prompt = np.arange(9, dtype=np.int32)
+    if arch == "hymba-1.5b":
+        assert PT.prefill_limit(cfg, MAX_LEN) == 8
+        with pytest.raises(ValueError, match="8-slot ring buffer"):
+            eng.submit(PS.ServeRequest(rid=0, prompt=prompt))
+    else:
+        assert PT.prefill_limit(cfg, MAX_LEN) is None
+        eng.submit(PS.ServeRequest(rid=0, prompt=prompt, max_new=2))
+        eng.run()
+        assert len(eng.completed[0].output) == 2
+
+
+@pytest.mark.parametrize("arch", SSM_ARCHS)
+def test_ssm_cli_serves_the_reduced_config(capsys, arch):
+    """``python -m repro_torch.serve --arch ... --reduced --device cpu``
+    serves the SSM archs (hymba's prompts capped at its window)."""
+    stats = CLI.main(["--arch", arch, "--device", "cpu", "--reduced",
+                      "--requests", "3", "--slots", "2", "--max-new", "3"])
+    assert stats["requests"] == 3 and stats["new_tokens"] > 0
+    assert f"{arch}: 4 layers, d_model 128" in capsys.readouterr().out
