@@ -31,7 +31,11 @@ Phases, each printing its seconds:
             gemma3-27b's and deepseek-v2's decode shapes (the gemma3 head,
             5,376 x 262,144, in 37 column tiles of RANK1) and gemma3's
             1,000-token prefill, and at rwkv6-3b's and hymba-1.5b's decode
-            shapes (SSM_LAYERS); K3 and K4 in 24 column tiles of a small
+            shapes (SSM_LAYERS), and at the train path's shapes
+            (TRAIN_LAYERS: every projection and head of the five trained
+            archs at 8 x 64 tokens, each entry and plain version timed
+            over the one call checked); K3 and
+            K4 in 24 column tiles of a small
             budget; printing the CUDA-core plan
             (tile, K slices) of each; hold every backend's
             int32 output to the JAX
@@ -77,9 +81,11 @@ Phases, each printing its seconds:
             ms per training step (CUDA events at each batch), one profiled
             step, cuDNN deterministic against not, and each sweep point's
             seconds; the artifacts are written to build/torch_eval/;
-7. serve    full-width smollm-135m (30 layers, d_model 576, vocab
-            49152, 134.5 M bf16 parameters from the port's own init at
-            seed 0) through repro_torch.serve.Engine, continuous batching
+7. serve    smollm-135m at its published width, its first SERVE_DEPTH
+            (15) of 30 layers (d_model 576, vocab 49152, bf16 parameters
+            from the port's own init at seed 0; the depth is cut to keep
+            the script inside its time limit) through
+            repro_torch.serve.Engine, continuous batching
             with the paged prefix cache, on the JAX package's serve-suite
             workload (8 requests into 4 slots, max_len 112, an 8-token
             shared prefix): under bf16, int8_exact, the oracles approx_lut
@@ -89,7 +95,7 @@ Phases, each printing its seconds:
             (kernel K1) equals its fused run; the probe request (admitted
             mid-decode on a prefix-cache hit) served alone on a cold engine
             gives the same tokens; the prefix hit rate is above 0; one
-            decode step launches 211 kernels (7 projections x 30 layers +
+            decode step launches 106 kernels (7 projections x 15 layers +
             the head). Each backend serves the workload twice (the tokens
             must agree); per run, ms per decode step (median, host clock
             around each step, synchronized), TTFT and tokens/s. Per
@@ -112,15 +118,11 @@ Phases, each printing its seconds:
             a fixed verify pass
             and draft step their ms, busy, kernel and idle share and
             kernel launches (per pass: verify + 4 draft steps);
-9. lm_train five make_train_step(qat=True) steps of full-width
-            smollm-135m (bf16 parameters from seed 0, remat) on
-            token_stream, batch 8 x 64: finite, falling loss; ms per step
-            from CUDA events after the first; one step profiled;
-10. gemma  gemma3-27b at its published widths (bf16 parameters from seed
+9. gemma   gemma3-27b at its published widths (bf16 parameters from seed
             0, the large leaves drawn on the card): all 62 layers
             (27.0 B parameters, block program [(10, local x 5 + global),
-            (1, global x 2)]) serve the serve suite's workload under bf16
-            and approx_deficit_pallas, unpaged at exact prompt lengths
+            (1, global x 2)]) serve the serve suite's workload under
+            approx_deficit_pallas, unpaged at exact prompt lengths
             (max_len 112: the window of 1,024 masks, no ring wraps), with
             the peak memory; then its first 6 layers (one 5:1 group, the
             window as published) serve 4 requests of 1,000-1,020 prompt
@@ -134,7 +136,7 @@ Phases, each printing its seconds:
             cache-free forward over the whole sequence; per backend the
             serving's step ms and a fixed step's ms, busy, kernels and
             idle share;
-11. deepseek deepseek-v2-236b at its published widths (d_model 5,120, 128
+10. deepseek deepseek-v2-236b at its published widths (d_model 5,120, 128
             heads, kv_lora 512, 160 experts top-6, 2 shared) at depth 4
             (17.3 B parameters, seed 0) on the serve suite's workload with
             the prefix cache, under bf16, the oracles and the three CUDA
@@ -142,7 +144,7 @@ Phases, each printing its seconds:
             and one speculative serving (K = 4, approx_stage1_pallas
             draft, approx_deficit_pallas target) equal to sequential
             decode;
-12. ssm   rwkv6-3b (32 layers of RWKV6 time and channel mix, d_model
+11. ssm   rwkv6-3b (32 layers of RWKV6 time and channel mix, d_model
             2,560, 40 heads of 64, d_ff 8,960, vocab 65,536, the chunked
             WKV; 3,099,527,680 bf16 parameters) and hymba-1.5b (32 layers
             of windowed attention beside Mamba, d_model 1,600, 25 / 5 heads
@@ -163,16 +165,43 @@ Phases, each printing its seconds:
             and the three CUDA backends: each CUDA backend's tokens and
             every sampled logits row bitwise equal to its oracle's, and
             deficit's to rank1's;
+12. train  the LM training path. (a) The fault-tolerant loop
+            (repro_torch.train.train_loop) on smollm-135m at its
+            published width: QAT, AdamW with int8 second moments, two
+            microbatches, batch 8 x 64, a checkpoint every 4 steps and a
+            failure injected after step 9 of 12; the rerun resumes from
+            step 8 and runs 4 steps; every leaf restored from step 8
+            (params, bf16 m, int8 v codes, v scales, the step count)
+            equals the host copy that was saved, bit for bit; the loss is
+            finite and falls; ms per step, the seconds and bytes of one
+            save and one restore; then ``python -m
+            repro_torch.examples.lm_train --model-scale 100m --crash
+            --steps 1`` runs once in a subprocess and exits 0. (b)
+            smollm-135m whole, gemma3-27b at depth 6 (one 5:1 group, 3.9 B
+            parameters), deepseek-v2-236b at depth 1 (5.1 B), rwkv6-3b
+            and hymba-1.5b whole, at their published widths (bf16 from
+            seed 0, remat on): three
+            make_train_step(qat=True) steps with quantized AdamW on one
+            token_stream batch of 8 x 64, a finite and falling loss,
+            the MoE aux loss, ms per step, one profiled step's busy and
+            idle share, the peak memory; then the loss and every gradient
+            of one STE step (qat off) under approx_deficit_pallas equal
+            approx_rank1_pallas's bit for bit (deterministic algorithms),
+            and on a cut batch of 1 x 16 tokens approx_deficit_pallas's
+            equal approx_lut's and approx_stage1_pallas's
+            approx_stage1's;
 13. launch counts, set to 0 before each of phases 4, 5 and 6 (the suite
-   runners' calls), 7 (the served runs), 8 (the speculative runs) and the
-   served runs of 10, 11 and 12, and read after it: LeNet-5 and FFDNet
-   each launch every entry but fused_matmul[exact], the suites, spec and
-   the ring, deepseek and ssm paths every fused entry, the serve path
-   K2[deficit], K2[stage1], K4 and (unfused) K1[stage1], full-depth
-   gemma3 K2[deficit];
+   runners' calls), 7 (the served runs), 8 (the speculative runs), the
+   served runs of 9, 10 and 11 and the STE steps of 12, and read after
+   it: LeNet-5 and FFDNet each launch every entry but
+   fused_matmul[exact], the suites, spec, train and the ring, deepseek
+   and ssm paths every fused entry, the serve path K2[deficit],
+   K2[stage1], K4 and (unfused) K1[stage1], full-depth gemma3
+   K2[deficit];
 14. one JSON line each ``{"suites": {...}}``, ``{"serve": {...}}``,
-   ``{"spec": {...}}``, ``{"lm_train": {...}}``, ``{"gemma": {...}}``,
-   ``{"deepseek": {...}}``, ``{"ssm": {...}}`` and ``{"kernels": [...]}``;
+   ``{"spec": {...}}``, ``{"gemma": {...}}``,
+   ``{"deepseek": {...}}``, ``{"ssm": {...}}``, ``{"train": {...}}`` and
+   ``{"kernels": [...]}``;
 then the ``nvidia-smi`` name and power limit, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure raises: the script exits
 non-zero and prints no result. It imports nothing of JAX.
@@ -268,10 +297,12 @@ SERVE_VARIANTS = SUITE_VARIANTS + [("approx_matmul", "stage1")]
 # the new archs' paths run the fused per-token routes; the full-depth
 # gemma3 path serves bf16 and approx_deficit_pallas only
 ARCH_VARIANTS = SUITE_VARIANTS
+# the train path's STE steps (qat off): K2 under deficit and stage1 and K4,
+# the fused per-token routes
 PATH_NEEDS = {"suites": SUITE_VARIANTS, "serve": SERVE_VARIANTS,
               "spec": SUITE_VARIANTS, "gemma": [("fused_matmul", "deficit")],
               "gemma_ring": ARCH_VARIANTS, "deepseek": ARCH_VARIANTS,
-              "ssm": ARCH_VARIANTS}
+              "ssm": ARCH_VARIANTS, "train": ARCH_VARIANTS}
 
 LENET_LAYERS = {  # (B, M, K, N) of each quantized matmul at batch 50
     "lenet5.c1": (50, 784, 25, 6), "lenet5.c2": (50, 196, 150, 16),
@@ -338,7 +369,21 @@ SSM_LAYERS = {  # rwkv6-3b and hymba-1.5b: decode of 4 slots; held for the
     "hymba.decode.gu": (4, 1, 1600, 5504),
     "hymba.decode.down": (4, 1, 5504, 1600),
     "hymba.decode.head": (4, 1, 1600, 32256)}
-LM_ROUTE_LAYERS = {**ARCH_LAYERS, **SSM_LAYERS}
+# The train path (phase 12): the STE step's batch of 8 x 64 tokens
+# through each trained arch's projections and head, the (K, N) of the
+# decode shapes above (smollm-135m's o is its q's; deepseek-v2's experts
+# run as float products). Their plain versions take up to 24 s a call:
+# the kernel, its plain version and RANK1's operand build are each timed
+# over the one call that is checked, and TRAIN_REPS runs of the kernel
+# profiled.
+TRAIN_ROWS = (8, 64)
+TRAIN_LAYERS = {
+    label.replace(".decode.", ".train."): (*TRAIN_ROWS, k, n)
+    for label, (_, _, k, n) in {**SERVE_LAYERS, **ARCH_LAYERS,
+                                **SSM_LAYERS}.items()
+    if ".decode." in label}
+TRAIN_REPS = 1
+LM_ROUTE_LAYERS = {**ARCH_LAYERS, **SSM_LAYERS, **TRAIN_LAYERS}
 # RANK1's column tiles under a small budget (rank1_column_tiles): 24 tiles
 TILED_LAYER = ("smollm.decode.up", 576 * (8 + 104) * 64)
 TIMED_LAYERS = {**LAYERS, **SERVE_LAYERS, **VERIFY_LAYERS, **LM_SUITE_LAYERS,
@@ -438,9 +483,6 @@ def main() -> int:
                                                   state)
     del state
     torch.cuda.empty_cache()
-    with Phase("lm_train"):
-        lines["lm_train"] = lm_train_phase(torch, detail, "cuda", full=True)
-    torch.cuda.empty_cache()
     with Phase("gemma"):
         lines["gemma"], gemma_paths = gemma_phase(torch, detail, "cuda",
                                                   full=True, ops=ops)
@@ -453,6 +495,10 @@ def main() -> int:
     with Phase("ssm"):
         lines["ssm"], paths["ssm"] = ssm_phase(torch, detail, "cuda",
                                                full=True, ops=ops)
+    torch.cuda.empty_cache()
+    with Phase("train"):
+        lines["train"], paths["train"] = train_phase(torch, detail, "cuda",
+                                                     full=True)
 
     with Phase("launches"):
         for name, var, _ in ROWS:
@@ -507,11 +553,17 @@ def _call(K, name, variant, x, w, scale, bias, relu, plain,
     return fn(x, w, scale, bias, design, relu=relu)   # rank1_fused_matmul
 
 
-def _operands(torch, gen, b, m, k, n, dev):
+def _operands(torch, gen, b, m, k, n, dev, wgen=None):
+    """Random int8 x (b, m, k) and w (k, n), a float32 scale and bias of
+    n: drawn by ``gen`` on the host, w by ``wgen`` on ``dev`` if given."""
     x = torch.randint(-127, 128, (b, m, k), generator=gen,
                       dtype=torch.int8).to(dev)
-    w = torch.randint(-127, 128, (k, n), generator=gen,
-                      dtype=torch.int8).to(dev)
+    if wgen is None:
+        w = torch.randint(-127, 128, (k, n), generator=gen,
+                          dtype=torch.int8).to(dev)
+    else:
+        w = torch.randint(-127, 128, (k, n), generator=wgen,
+                          dtype=torch.int8, device=dev)
     scale = (torch.rand((1, n), generator=gen) * 1e-3).to(dev)
     bias = torch.randn((1, n), generator=gen).to(dev)
     return x, w, scale, bias
@@ -530,6 +582,17 @@ def _ms(torch, fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def _timed_once(torch, fn) -> tuple:
+    """(fn(), its ms from CUDA events around the one call)."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
 def _ms_turns(torch, f, g, reps: int) -> tuple:
     """Kernel-event ms of ``f`` and ``g`` timed in turns (f, g, g, f),
     each the mean of its two turns."""
@@ -537,30 +600,28 @@ def _ms_turns(torch, f, g, reps: int) -> tuple:
     return (a1 + a2) / 2, (b1 + b2) / 2
 
 
-def _device_ms(torch, calls, reps: int) -> list:
-    """Mean device ms of the port's kernels in ``reps`` runs of each of
-    ``calls`` (pairs of a function and the launches one run must make:
-    1, or RANK1's column tiles), from one torch.profiler session. One
-    stream runs the kernels in launch order, so the session's spans fall
-    into the calls' groups in order."""
-    from torch.autograd import DeviceType
+def _device_ms(torch, calls) -> list:
+    """Mean device ms of the port's kernels in each of ``calls`` (triples
+    of a function, the launches one run must make: 1, or RANK1's column
+    tiles, and its runs), from one torch.profiler session. One stream runs
+    the kernels in launch order, so the session's spans fall into the
+    calls' groups in order."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        for fn, _ in calls:
+        for fn, _, reps in calls:
             for _ in range(reps):
                 fn()
         torch.cuda.synchronize()
-    spans = sorted((e.time_range.start, e.time_range.end)
-                   for e in prof.events()
-                   if e.device_type == DeviceType.CUDA and _ours(e.name))
-    want = reps * sum(n for _, n in calls)
+    spans = [(lo, hi) for lo, hi, name in _device_spans(torch, prof)
+             if _ours(name)]
+    want = sum(n * reps for _, n, reps in calls)
     check(len(spans) == want, f"{len(spans)} kernel spans, {want} launches")
     out, i = [], 0
-    for _, n in calls:
+    for _, n, reps in calls:
         out.append(sum(hi - lo for lo, hi in spans[i:i + reps * n])
-                   / reps / 1e3)
+                   / reps / 1e6)
         i += reps * n
     return out
 
@@ -734,9 +795,13 @@ def kernels_phase(torch, K, detail, ops):
               **SERVE_SUITE_LAYERS, **LM_ROUTE_LAYERS}
     errs = {r[:2]: 0.0 for r in ROWS}
     per_layer, timed = [], []
+    wgen = torch.Generator(device=dev).manual_seed(0)
     for label, (bb, m, k, n) in shapes.items():
-        x, w, scale, bias = _operands(torch, gen, bb, m, k, n, dev)
+        train = label in TRAIN_LAYERS
+        x, w, scale, bias = _operands(torch, gen, bb, m, k, n, dev,
+                                      wgen if train else None)
         arch = label in LM_ROUTE_LAYERS
+        reps = TRAIN_REPS if train else 5
         for name, var, _ in ROWS:
             if arch and (name, var) not in ARCH_VARIANTS:
                 continue
@@ -747,8 +812,10 @@ def kernels_phase(torch, K, detail, ops):
             for relu in relus:
                 for design in designs:
                     args = (K, name, var, x, w, scale, bias, relu)
-                    got = _call(*args, False, design)
-                    want = _call(*args, True, design)
+                    got, kern_once = _timed_once(
+                        torch, lambda: _call(*args, False, design))
+                    want, plain_once = _timed_once(
+                        torch, lambda: _call(*args, True, design))
                     err = _max_err(got, want)
                     errs[(name, var)] = max(errs[(name, var)], err)
                     check(got.dtype == want.dtype and torch.equal(got, want),
@@ -757,8 +824,9 @@ def kernels_phase(torch, K, detail, ops):
             if label in TIMED_LAYERS:
                 kern = functools.partial(_call, K, name, var, x, w, scale,
                                          bias, False, False)
-                pms = _ms(torch, lambda: _call(K, name, var, x, w, scale,
-                                               bias, False, True), 2)
+                pms = plain_once if train else _ms(
+                    torch, lambda: _call(K, name, var, x, w, scale, bias,
+                                         False, True), 2)
                 lib = operands_ms = None
                 if var == "exact" and k % 8 == 0 and n % 8 == 0 \
                         and bb * m > 16:
@@ -773,15 +841,16 @@ def kernels_phase(torch, K, detail, ops):
                     kms, lib = _ms_turns(torch, kern,
                                          lambda: torch._int_mm(x2, w), 5)
                 else:
-                    kms = _ms(torch, kern, 5)
+                    kms = kern_once if train else _ms(torch, kern, 5)
                 if var == "exact":
                     operands_ms = _ms(torch,
                                       lambda: K.exact_weight_operand(w), 5)
                 elif var == "rank1":
-                    operands_ms = _ms(torch, lambda: _rank1_operands(K, w),
-                                      5)
+                    build = functools.partial(_rank1_operands, K, w)
+                    operands_ms = (_timed_once(torch, build)[1] if train
+                                   else _ms(torch, build, 5))
                 bound, by = _bound(name, var, bb * m, k, n, fac, ops)
-                timed.append((kern, _launches_per_call(K, var, k, n)))
+                timed.append((kern, _launches_per_call(K, var, k, n), reps))
                 per_layer.append({
                     "layer": label, "entry": name, "variant": var,
                     "shape": [bb, m, k, n], "kernel_ms": kms,
@@ -804,8 +873,8 @@ def kernels_phase(torch, K, detail, ops):
     # one profiler session: later sessions in one process may see no
     # device events
     for row, ms in zip(per_layer + data_rows,
-                       _device_ms(torch, timed + [(c, 1) for c in data_calls],
-                                  5)):
+                       _device_ms(torch,
+                                  timed + [(c, 1, 5) for c in data_calls])):
         row["device_ms"] = ms
     detail["table_data"] = data_rows
     for r in data_rows:
@@ -841,6 +910,10 @@ def kernels_phase(torch, K, detail, ops):
                 r["layer"]: r["device_ms"] for r in per_layer
                 if r["layer"] in VERIFY_LAYERS and r["entry"] == name
                 and r["variant"] == var},
+            "train_device_ms": {
+                r["layer"]: [r["device_ms"], r["bound_ms"]]
+                for r in per_layer if r["layer"] in TRAIN_LAYERS
+                and r["entry"] == name and r["variant"] == var},
             **({"operands_ms": t["operands_ms"]}
                if var in TC_VARIANTS else {}),
             "_entry": name, "_variant": var})
@@ -945,7 +1018,6 @@ def _profile_ms(torch, run) -> dict:
     the ms in which the card ran anything (kernels, copies, fills; the
     union of their spans), the ms of the port's kernels (approx_mm and
     tc_mm), and the count of device spans (every kernel, copy and fill)."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -954,16 +1026,27 @@ def _profile_ms(torch, run) -> dict:
         run()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    spans = sorted((e.time_range.start, e.time_range.end, e.name)
-                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+    spans = _device_spans(torch, prof)
     check(bool(spans), "torch.profiler recorded no device activity")
     busy, end = 0.0, float("-inf")
     for lo, hi, _ in spans:
         busy += max(0.0, hi - max(lo, end))
         end = max(end, hi)
     ours = sum(hi - lo for lo, hi, name in spans if _ours(name))
-    return {"wall_ms": wall, "device_busy_ms": busy / 1e3,
-            "kernels_ms": ours / 1e3, "device_ops": len(spans)}
+    return {"wall_ms": wall, "device_busy_ms": busy / 1e6,
+            "kernels_ms": ours / 1e6, "device_ops": len(spans)}
+
+
+def _device_spans(torch, prof) -> list:
+    """(start ns, end ns, name) of every device span (kernel, copy, fill)
+    of a profile, sorted, read from the profiler's raw events:
+    ``prof.events()`` builds a tree of every host and device event first,
+    which takes seconds a step of some 10^4 device ops."""
+    from torch.autograd import DeviceType
+    return sorted((e.start_ns(), e.end_ns(), e.name())
+                  for e in prof.profiler.kineto_results.events()
+                  if e.device_type() == DeviceType.CUDA
+                  and not e.is_user_annotation())
 
 
 def _time_forward(torch, forward, label: str) -> dict:
@@ -1175,6 +1258,23 @@ def _sync(torch, dev: str):
         torch.cuda.synchronize()
 
 
+def _stamp(torch, dev: str):
+    """A CUDA event recorded now on the card, else the host clock."""
+    if dev == "cuda":
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        return ev
+    return time.perf_counter()
+
+
+def _gaps_ms(torch, dev: str, stamps) -> list:
+    """Milliseconds between successive ``_stamp``s."""
+    if dev == "cuda":
+        torch.cuda.synchronize()
+        return [a.elapsed_time(b) for a, b in zip(stamps, stamps[1:])]
+    return [(b - a) * 1e3 for a, b in zip(stamps, stamps[1:])]
+
+
 class SuiteRecorder:
     """For the length of a ``with``, wraps the functions of
     repro_torch.train.cnn_train that the suite runners call: each ``fit``
@@ -1201,31 +1301,19 @@ class SuiteRecorder:
             setattr(self.T, n, fn)
         return False
 
-    def _stamp(self):
-        if self.dev == "cuda":
-            ev = self.torch.cuda.Event(enable_timing=True)
-            ev.record()
-            return ev
-        return time.perf_counter()
-
-    def _gaps_ms(self, stamps) -> list:
-        if self.dev == "cuda":
-            self.torch.cuda.synchronize()
-            return [a.elapsed_time(b) for a, b in zip(stamps, stamps[1:])]
-        return [(b - a) * 1e3 for a, b in zip(stamps, stamps[1:])]
-
     def _fit(self, descs, loss_fn, batches, **kw):
         stamps = []
 
         def drawn():
             for batch in batches:
-                stamps.append(self._stamp())
+                stamps.append(_stamp(self.torch, self.dev))
                 yield batch
 
         params, losses = self.saved["fit"](descs, loss_fn, drawn(), **kw)
-        stamps.append(self._stamp())
+        stamps.append(_stamp(self.torch, self.dev))
         self.fits.append({"losses": losses,
-                          "step_ms": self._gaps_ms(stamps)})
+                          "step_ms": _gaps_ms(self.torch, self.dev,
+                                              stamps)})
         return params, losses
 
     def _timed(self, name):
@@ -1551,6 +1639,7 @@ SERVE_UNFUSED = "approx_stage1_pallas"
 SHARED_PREFIX = 8        # one full page at the engine's page_size 8
 PROJECTIONS_PER_LAYER = 7   # q, k, v, o, gate, up, down
 SERVE_REPS = 2           # the workload served this many times per backend
+SERVE_DEPTH = 15         # smollm-135m's layers served in phases 7-8 (of 30)
 STEP_REPS = 20           # timed calls of a fixed-shape decode step
 
 
@@ -1679,6 +1768,7 @@ def serve_phase(torch, detail, dev: str, full: bool, ops=None) -> tuple:
               (30, 576, 9, 3, 1536, 49152, torch.bfloat16)
               and n_params(TLM.descs(cfg0)) == 134_515_008,
               f"unexpected smollm-135m config {cfg0}")
+        cfg0 = dataclasses.replace(cfg0, n_layers=SERVE_DEPTH)
     else:
         cfg0 = registry.reduced("smollm-135m", n_layers=2, d_model=64,
                                 n_heads=4, n_kv_heads=2, d_ff=128, vocab=64,
@@ -2138,100 +2228,12 @@ def spec_phase(torch, detail, dev: str, state: dict) -> tuple:
 
 
 # ---------------------------------------------------------------------------
-# Phase 9: QAT training of smollm-135m at full width
-# ---------------------------------------------------------------------------
-
-LM_TRAIN_STEPS = 5
-LM_TRAIN_BATCH = 8
-LM_TRAIN_SEQ = 64
-
-
-def lm_train_phase(torch, detail, dev: str, full: bool) -> dict:
-    """LM_TRAIN_STEPS steps of ``make_train_step(qat=True)`` on
-    ``token_stream`` at seq LM_TRAIN_SEQ: smollm-135m at its published width
-    (bf16 parameters from the port's init at seed 0, remat on) when
-    ``full``, else the 2-layer, 64-wide smollm (the CPU rehearsal). The
-    loss must stay finite and fall; ms per step from CUDA events at each
-    step, after the first; one more step profiled."""
-    from repro_torch.configs import registry
-    from repro_torch.data import synthetic
-    from repro_torch.models import transformer_lm as TLM
-    from repro_torch.nn.module import n_params
-    from repro_torch.optim import adamw
-    from repro_torch.train import steps as ST
-
-    if full:
-        cfg = registry.get("smollm-135m")
-        check(n_params(TLM.descs(cfg)) == 134_515_008 and cfg.remat,
-              f"unexpected smollm-135m config {cfg}")
-    else:
-        cfg = registry.reduced("smollm-135m", n_layers=2, d_model=64,
-                               n_heads=4, n_kv_heads=2, d_ff=128, vocab=256,
-                               vocab_pad=256, head_dim=16)
-    params = TLM.init(cfg, torch.Generator().manual_seed(0), device=dev)
-    ocfg = adamw.AdamWConfig(lr=1e-3)
-    opt = adamw.init(params, ocfg)
-    step = ST.make_train_step(cfg, ocfg, qat=True)
-    n_seqs = 8 * LM_TRAIN_BATCH
-    toks = synthetic.token_stream(n_seqs, LM_TRAIN_SEQ + 1, cfg.vocab,
-                                  seed=0)
-    rng = np.random.default_rng(0)
-
-    def batch():
-        idx = rng.integers(0, n_seqs, LM_TRAIN_BATCH)
-        return {"tokens": torch.as_tensor(toks[idx, :-1], device=dev),
-                "labels": torch.as_tensor(toks[idx, 1:], device=dev)}
-
-    losses, stamps = [], []
-    for _ in range(LM_TRAIN_STEPS):
-        b = batch()
-        if dev == "cuda":
-            stamps.append(torch.cuda.Event(enable_timing=True))
-            stamps[-1].record()
-        params, opt, metrics = step(params, opt, b)
-        losses.append(metrics["loss"])
-    out = {"config": {"arch": cfg.name, "n_layers": cfg.n_layers,
-                      "d_model": cfg.d_model, "vocab": cfg.vocab,
-                      "params": n_params(TLM.descs(cfg)),
-                      "param_dtype": str(cfg.param_dtype), "remat": cfg.remat,
-                      "batch": LM_TRAIN_BATCH, "seq": LM_TRAIN_SEQ,
-                      "lr": ocfg.lr, "qat": True}}
-    if dev == "cuda":
-        stamps.append(torch.cuda.Event(enable_timing=True))
-        stamps[-1].record()
-        torch.cuda.synchronize()
-        step_ms = [a.elapsed_time(b) for a, b in zip(stamps, stamps[1:])]
-        b = batch()
-        prof = _profile_ms(torch, lambda: step(params, opt, b))
-        med = statistics.median(step_ms[1:])
-        out.update({"step_ms": step_ms, "ms_per_step": med, **prof,
-                    "idle_share": 1 - prof["device_busy_ms"] / med,
-                    "max_memory_gb":
-                        torch.cuda.max_memory_allocated() / 2**30})
-    losses = [float(v) for v in losses]
-    check(all(np.isfinite(losses)), f"lm_train: loss not finite {losses}")
-    check(losses[-1] < losses[0],
-          f"lm_train: loss did not fall {losses}")
-    out["losses"] = losses
-    print(f"  lm_train {cfg.name} ({out['config']['params']:,} params, "
-          f"batch {LM_TRAIN_BATCH} x {LM_TRAIN_SEQ}): loss "
-          + " -> ".join(f"{v:.4f}" for v in losses)
-          + (f"; {out['ms_per_step']:.3f} ms per step after the first "
-             f"(first {out['step_ms'][0]:.3f}); profiled step: busy "
-             f"{out['device_busy_ms']:.3f} ms, idle "
-             f"{out['idle_share']:.2f}; peak memory "
-             f"{out['max_memory_gb']:.2f} GiB" if dev == "cuda" else ""),
-          flush=True)
-    return out
-
-
-# ---------------------------------------------------------------------------
-# Phases 10-11: the windowed, MLA and mixture-of-experts archs
+# Phases 9-10: the windowed, MLA and mixture-of-experts archs
 # ---------------------------------------------------------------------------
 
 ARCH_SEED = 0
 ARCH_STEP_REPS = 3           # timed calls of a fixed-shape decode step
-GEMMA_BACKENDS = ("bf16", "approx_deficit_pallas")
+GEMMA_BACKENDS = ("approx_deficit_pallas",)   # all 62 layers
 RING_BACKENDS = ("bf16",) + CUDA_BACKENDS
 RING_DEPTH = 6               # one whole 5:1 local:global group
 # bf16 served rows against a cache-free forward over the whole sequence:
@@ -2390,7 +2392,7 @@ def _bitwise_runs(label, runs, a, b):
 
 
 def gemma_phase(torch, detail, dev: str, full: bool, ops=None) -> tuple:
-    """gemma3-27b (see the module docstring, phase 10). ``full``: the
+    """gemma3-27b (see the module docstring, phase 9). ``full``: the
     published config, 62 layers from seed 0 (27.0 B bf16 parameters),
     then its first RING_DEPTH layers; without it the reduced gemma3 (one
     5:1 group and a remainder group of 2) on the CPU, with a window of 64
@@ -2436,7 +2438,7 @@ def gemma_phase(torch, detail, dev: str, full: bool, ops=None) -> tuple:
     # --- the whole model on the serve suite's workload: unpaged, exact
     # prompt lengths (rings longer than max_len: the window masks only)
     reqs, slots, max_len = serve_workload(cfg0.vocab, smoke=not full, seed=0)
-    full_toks, out["full"] = {}, {}
+    out["full"] = {}
     for be in GEMMA_BACKENDS:
         cfg = dataclasses.replace(cfg0, quant=for_lm(be))
         eng, toks, rec, stats, peak = _serve_arch(
@@ -2447,14 +2449,9 @@ def gemma_phase(torch, detail, dev: str, full: bool, ops=None) -> tuple:
         if dev == "cuda":
             row.update(_arch_step(torch, K, eng, params, cfg,
                                   [40, 50, 60, 70], be, ops, fac))
-        full_toks[be] = toks
         out["full"][be] = row
         _print_arch(f"gemma3 L{cfg0.n_layers}", be, row)
         del eng, rec        # the recorder holds the engine, and its params
-    same = sum(a == b for rid in full_toks["bf16"] for a, b in zip(
-        full_toks["bf16"][rid], full_toks[GEMMA_BACKENDS[1]][rid]))
-    out["full"]["deficit_tokens_equal_bf16"] = same / sum(
-        len(t) for t in full_toks["bf16"].values())
 
     # --- the first RING_DEPTH layers on the ring workload
     cfg6 = dataclasses.replace(cfg0, n_layers=RING_DEPTH,
@@ -2592,7 +2589,7 @@ def _verify_rows(torch, TLM, params, cfg, dev: str, k: int) -> dict:
 
 
 def deepseek_phase(torch, detail, dev: str, full: bool, ops=None) -> tuple:
-    """deepseek-v2-236b (see the module docstring, phase 11): the
+    """deepseek-v2-236b (see the module docstring, phase 10): the
     published widths at depth DSV2_DEPTH (seed 0, bf16) when ``full``,
     else the reduced config on the CPU, on the serve suite's workload with
     the prefix cache; each CUDA backend bitwise to its oracle, and one
@@ -2685,7 +2682,7 @@ def deepseek_phase(torch, detail, dev: str, full: bool, ops=None) -> tuple:
 
 
 # ---------------------------------------------------------------------------
-# Phase 12: the SSM archs, rwkv6-3b and hymba-1.5b
+# Phase 11: the SSM archs, rwkv6-3b and hymba-1.5b
 # ---------------------------------------------------------------------------
 
 # (n_layers, d_model, n_heads, n_kv_heads, d_ff, vocab, window) and the
@@ -2820,7 +2817,7 @@ def _cache_free_rows(torch, TLM, params, cfg, reqs, run, dev) -> dict:
 
 
 def _ssm_arch(torch, dev, full, ops, arch, launches) -> dict:
-    """One SSM arch (see the module docstring, phase 12)."""
+    """One SSM arch (see the module docstring, phase 11)."""
     import dataclasses
     from repro_torch.configs import registry
     from repro_torch.core import factor as F
@@ -2940,7 +2937,7 @@ def _ssm_arch(torch, dev, full, ops, arch, launches) -> dict:
 
 
 def ssm_phase(torch, detail, dev: str, full: bool, ops=None) -> tuple:
-    """rwkv6-3b and hymba-1.5b (see the module docstring, phase 12):
+    """rwkv6-3b and hymba-1.5b (see the module docstring, phase 11):
     ``full`` serves the published configs from seed 0 on the card; without
     it the reduced ones (6 layers, hymba's window 64) on the CPU. Returns
     the ssm line and the path's kernel launches."""
@@ -2954,6 +2951,399 @@ def ssm_phase(torch, detail, dev: str, full: bool, ops=None) -> tuple:
         if dev == "cuda":
             torch.cuda.empty_cache()
     detail["ssm"] = out
+    return out, launches
+
+
+# ---------------------------------------------------------------------------
+# Phase 12: the LM training path
+# ---------------------------------------------------------------------------
+
+TRAIN_BATCH, TRAIN_SEQ = TRAIN_ROWS
+# (a) the fault-tolerant loop: a checkpoint every TRAIN_CKPT steps, a
+# failure injected after step TRAIN_FAIL, the rerun resumes from step 8
+TRAIN_STEPS, TRAIN_CKPT, TRAIN_FAIL = 12, 4, 9
+TRAIN_CKPT_DIR = ROOT / "build" / "train_ckpt"
+# the example's run: it crashes after step 0 (2 * 1 // 3), before its
+# first checkpoint (every 10 steps), so its rerun starts from step 0 (a
+# step at 32 x 1,024 takes seconds)
+EXAMPLE_STEPS = 1
+# (b) each arch's depth (None: whole) and parameter count at it
+TRAIN_ARCHS = {"smollm-135m": (None, 134_515_008),
+               "gemma3-27b": (6, 3_886_616_832),
+               "deepseek-v2-236b": (1, 5_100_911_616),
+               "rwkv6-3b": (None, 3_099_527_680),
+               "hymba-1.5b": (None, 1_345_537_600)}
+ARCH_TRAIN_STEPS = 3         # on one batch
+# quantized AdamW damps its first updates (its v starts at 0.25: ROADMAP
+# queue C), so that at 1e-3 gemma3's bf16 weights barely move in 3 steps
+TRAIN_LR = 1e-2
+# the STE steps held against each other and their oracles: full width on
+# the batch, and each CUDA backend against its oracle on a cut batch
+STE_PAIR = ("approx_deficit_pallas", "approx_rank1_pallas")
+ORACLE_PAIRS = (("approx_deficit_pallas", "approx_lut"),
+                ("approx_stage1_pallas", "approx_stage1"))
+CUT_BATCH = (1, 16)
+
+
+class CheckpointRecorder:
+    """For the length of a ``with``, wraps repro_torch.train.checkpoint's
+    ``CheckpointManager.save`` and ``_write``: each save's blocking seconds
+    (the host copy, after waiting on the previous save), and each write's
+    seconds, bytes and host copies (the tensors as saved), by step."""
+
+    def __init__(self, CK):
+        self.CK = CK
+        self.save_s, self.write_s, self.bytes, self.host = {}, {}, {}, {}
+
+    def __enter__(self):
+        M = self.CK.CheckpointManager
+        self.saved = (M.save, M._write)
+        rec = self
+
+        def save(mgr, step, tree):
+            t0 = time.perf_counter()
+            rec.saved[0](mgr, step, tree)
+            rec.save_s[step] = time.perf_counter() - t0
+
+        def write(mgr, step, host):
+            t0 = time.perf_counter()
+            rec.saved[1](mgr, step, host)
+            rec.write_s[step] = time.perf_counter() - t0
+            rec.bytes[step] = sum(a.nbytes for _, a, _ in host)
+            rec.host[step] = host
+
+        M.save, M._write = save, write
+        return self
+
+    def __exit__(self, *exc):
+        M = self.CK.CheckpointManager
+        M.save, M._write = self.saved
+        return False
+
+
+def _train_batches(toks, stamps):
+    """Batches of TRAIN_BATCH rows of ``toks`` in turn, stamping the host
+    clock at each draw: a step of the loop ends with its loss on the
+    host, so the gaps are whole steps."""
+    i = 0
+    while True:
+        stamps.append(time.perf_counter())
+        rows = toks[(i * TRAIN_BATCH) % len(toks):][:TRAIN_BATCH]
+        yield {"tokens": rows[:, :-1], "labels": rows[:, 1:]}
+        i += 1
+
+
+def train_loop_check(torch, dev: str, full: bool) -> dict:
+    """Part (a): the fault-tolerant loop on smollm-135m at its published
+    width (``full``; else the 2-layer, 64-wide smollm on the CPU): QAT,
+    quantized AdamW, two microbatches. The first run raises after step
+    TRAIN_FAIL; the rerun resumes from step 8 and runs 4 steps; every
+    leaf restored from step 8 equals the host copy that was saved, bit
+    for bit; the loss is finite and falls. Then the example
+    (``python -m repro_torch.examples.lm_train``) crashes and reruns once
+    in a subprocess."""
+    import io
+    import shutil
+    from repro_torch.configs import registry
+    from repro_torch.data import synthetic
+    from repro_torch.models import transformer_lm as TLM
+    from repro_torch.nn.module import n_params
+    from repro_torch.optim import adamw
+    from repro_torch.train import checkpoint as CK
+    from repro_torch.train import train_loop as TL
+
+    if full:
+        cfg = registry.get("smollm-135m")
+        check(n_params(TLM.descs(cfg)) == 134_515_008,
+              f"unexpected smollm-135m config {cfg}")
+    else:
+        cfg = registry.reduced("smollm-135m", n_layers=2, d_model=64,
+                               n_heads=4, n_kv_heads=2, d_ff=128, vocab=256,
+                               vocab_pad=256, head_dim=16)
+    ocfg = adamw.AdamWConfig(lr=2e-3, quantized_state=True)
+    toks = synthetic.token_stream(8 * TRAIN_BATCH, TRAIN_SEQ + 1, cfg.vocab,
+                                  seed=0)
+    shutil.rmtree(TRAIN_CKPT_DIR, ignore_errors=True)
+    tc = TL.TrainConfig(steps=TRAIN_STEPS, ckpt_every=TRAIN_CKPT,
+                        ckpt_dir=str(TRAIN_CKPT_DIR), log_every=1,
+                        microbatches=2, qat=True, fail_at_step=TRAIN_FAIL)
+    first = []
+    log = io.StringIO()
+    with CheckpointRecorder(CK) as rec:
+        try:
+            with contextlib.redirect_stdout(log):
+                TL.train(cfg, ocfg, tc, _train_batches(toks, first),
+                         seed=0, device=dev)
+        except RuntimeError as e:
+            check(f"injected failure at step {TRAIN_FAIL}" in str(e),
+                  f"train loop: unexpected failure {e}")
+        else:
+            check(False, "train loop: the injected failure did not raise")
+        out = TL.train(cfg, ocfg, dataclasses.replace(tc, fail_at_step=-1),
+                       _train_batches(toks, []), seed=0, device=dev)
+    first_losses = [float(v) for v in re.findall(
+        r"\[train\] step +\d+ loss (\S+)", log.getvalue())]
+    check(len(first_losses) == TRAIN_FAIL,
+          f"train loop: {len(first_losses)} logged losses before the crash")
+    check(sorted(rec.write_s) == [4, 8, 12],
+          f"train loop: saved steps {sorted(rec.write_s)}")
+    check(out["resumed_from"] == 8 and len(out["losses"]) == 4,
+          f"train loop: resumed from {out['resumed_from']} with "
+          f"{len(out['losses'])} losses")
+    losses = first_losses + out["losses"]
+    check(all(np.isfinite(losses)), f"train loop: loss not finite {losses}")
+    check(out["losses"][-1] < first_losses[0],
+          f"train loop: loss did not fall {losses}")
+
+    # every leaf of step 8, restored onto the device, against its host copy
+    like = {"params": out["params"], "opt": out["opt_state"]}
+    _sync(torch, dev)
+    t0 = time.perf_counter()
+    restored = CK.CheckpointManager(TRAIN_CKPT_DIR).restore(8, like)
+    _sync(torch, dev)
+    restore_s = time.perf_counter() - t0
+    from repro_torch.optim.adamw import flatten
+    pairs = flatten(restored)
+    saved = rec.host[8]
+    check([n for n, _, _ in saved] == ["/".join(map(str, p))
+                                       for p, _ in pairs],
+          "train loop: the restored leaves are not the saved ones")
+    dtypes = set()
+    for (path, t), (name, arr, dtype) in zip(pairs, saved):
+        check(t.device.type == dev, f"{name} restored on {t.device}")
+        got, got_dtype = CK._to_numpy(t)
+        check(got_dtype == dtype and got.shape == arr.shape
+              and np.array_equal(got.view(np.uint8), arr.view(np.uint8)),
+              f"train loop: {name} restored from step 8 differs from the "
+              "tensor saved")
+        dtypes.add(dtype)
+    check({"bfloat16", "int8", "int32", "float32"} <= dtypes,
+          f"train loop: the checkpoint holds only {sorted(dtypes)}")
+    del restored, like
+    gaps = [(b - a) * 1e3 for a, b in zip(first, first[1:])]
+    line = {"config": {"arch": cfg.name, "params": n_params(TLM.descs(cfg)),
+                       "param_dtype": str(cfg.param_dtype),
+                       "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+                       "microbatches": 2, "qat": True, "lr": ocfg.lr,
+                       "quantized_state": True, "steps": TRAIN_STEPS,
+                       "ckpt_every": TRAIN_CKPT, "fail_at_step": TRAIN_FAIL},
+            "losses_before_crash": first_losses,
+            "losses_after_resume": out["losses"],
+            "resumed_from": out["resumed_from"],
+            "step_ms_host": gaps, "ms_per_step": statistics.median(gaps),
+            "save": {"step": 8, "blocking_s": rec.save_s[8],
+                     "write_s": rec.write_s[8], "bytes": rec.bytes[8]},
+            "restore": {"step": 8, "s": restore_s, "bytes": rec.bytes[8],
+                        "leaves": len(pairs), "bitwise": True,
+                        "dtypes": sorted(dtypes)}}
+    print(f"  train loop {cfg.name}: crashed after step {TRAIN_FAIL}, "
+          f"resumed from step {out['resumed_from']}; loss "
+          f"{first_losses[0]:.4f} -> {out['losses'][-1]:.4f}; "
+          f"{line['ms_per_step']:.1f} ms per step (host, median of "
+          f"{len(gaps)}); save of step 8: {rec.bytes[8]:,} bytes, "
+          f"{rec.save_s[8]:.3f} s blocking + {rec.write_s[8]:.3f} s "
+          f"written; restore {restore_s:.3f} s; all {len(pairs)} leaves "
+          f"({', '.join(sorted(dtypes))}) bitwise the saved ones",
+          flush=True)
+    del out
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+
+    # the example, once, in a subprocess
+    ex_dir = ROOT / "build" / "lm_train_example"
+    shutil.rmtree(ex_dir, ignore_errors=True)
+    cmd = [sys.executable, "-m", "repro_torch.examples.lm_train",
+           "--model-scale", "100m" if full else "tiny", "--crash",
+           "--steps", str(EXAMPLE_STEPS), "--ckpt-dir", str(ex_dir),
+           "--device", dev]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
+                         env=env, cwd=ROOT)
+    ex_s = time.perf_counter() - t0
+    m = re.search(r"final loss (\S+) \(resumed_from=(\w+)\)", res.stdout)
+    check(res.returncode == 0 and m is not None
+          and "crashed as requested" in res.stdout,
+          f"lm_train example failed (exit {res.returncode}): "
+          f"{res.stdout[-2000:]} {res.stderr[-2000:]}")
+    check(np.isfinite(float(m.group(1))) and m.group(2) == "None",
+          f"lm_train example: {m.group(0)}")
+    line["example"] = {"cmd": " ".join(cmd[1:]), "s": ex_s,
+                       "final_loss": float(m.group(1)),
+                       "resumed_from": m.group(2)}
+    print(f"  python {' '.join(cmd[1:3])} --model-scale "
+          f"{'100m' if full else 'tiny'} --crash --steps {EXAMPLE_STEPS}: "
+          f"exit 0 in {ex_s:.1f} s, {m.group(0)}", flush=True)
+    return line
+
+
+def _grads_equal(torch, label: str, a: tuple, b: tuple, names: tuple) -> int:
+    """The loss and every gradient leaf of run ``a`` equal run ``b``'s, bit
+    for bit; returns the number of leaves."""
+    from repro_torch.optim.adamw import flatten
+    (la, ga), (lb, gb) = a, b
+    check(torch.equal(la, lb), f"{label}: {names[0]}'s loss {float(la)!r} "
+          f"differs from {names[1]}'s {float(lb)!r}")
+    fa, fb = flatten(ga), flatten(gb)
+    bad = ["/".join(map(str, p)) for (p, x), (_, y) in zip(fa, fb)
+           if x.dtype != y.dtype or not torch.equal(x, y)]
+    check(not bad, f"{label}: {names[0]}'s gradients differ from "
+          f"{names[1]}'s at {bad}")
+    return len(fa)
+
+
+def train_arch_check(torch, dev: str, full: bool, arch: str,
+                     launches: dict) -> dict:
+    """Part (b), one arch: ARCH_TRAIN_STEPS ``make_train_step(qat=True)``
+    steps (quantized AdamW, bf16 parameters from seed 0) with a finite,
+    falling loss, their ms, one profiled step, the peak memory and (MoE)
+    the aux loss; then the loss and gradients of one STE step (qat off)
+    under approx_deficit_pallas and approx_rank1_pallas on the same batch,
+    bitwise equal, and on a cut batch each CUDA backend against its
+    oracle, bitwise; the kernel launches of the STE steps counted into
+    ``launches``."""
+    from repro_torch.configs import registry
+    from repro_torch.data import synthetic
+    from repro_torch.kernels import approx_matmul as K
+    from repro_torch.models import transformer_lm as TLM
+    from repro_torch.nn.module import n_params
+    from repro_torch.optim import adamw
+    from repro_torch.quant.quantize import for_lm
+    from repro_torch.train import steps as ST
+    from repro_torch.train.cnn_train import training_numerics, value_and_grad
+
+    depth, n_want = TRAIN_ARCHS[arch]
+    if full:
+        cfg = registry.get(arch)
+        if depth:
+            cfg = dataclasses.replace(cfg, n_layers=depth)
+        check(n_params(TLM.descs(cfg)) == n_want and cfg.remat
+              and cfg.param_dtype == torch.bfloat16,
+              f"unexpected {arch} training config {cfg}")
+    else:
+        cfg = registry.reduced(arch, param_dtype=torch.bfloat16, remat=True)
+    label = f"{arch} L{cfg.n_layers}"
+    if dev == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    params, init = _init_arch(torch, TLM, cfg, dev)
+    ocfg = adamw.AdamWConfig(lr=TRAIN_LR, quantized_state=True)
+    opt = adamw.init(params, ocfg)
+    step = ST.make_train_step(cfg, ocfg, qat=True)
+    toks = synthetic.token_stream(4 * TRAIN_BATCH, TRAIN_SEQ + 1, cfg.vocab,
+                                  seed=0)
+
+    def batch(i, rows=TRAIN_BATCH, seq=TRAIN_SEQ):
+        t = toks[i * TRAIN_BATCH:i * TRAIN_BATCH + rows]
+        return {"tokens": torch.as_tensor(t[:, :seq], device=dev),
+                "labels": torch.as_tensor(t[:, 1:seq + 1], device=dev)}
+
+    losses, stamps = [], []
+    b = batch(0)        # one batch: the loss falls with no batch noise
+    for _ in range(ARCH_TRAIN_STEPS):
+        stamps.append(_stamp(torch, dev))
+        params, opt, metrics = step(params, opt, b)
+        losses.append(metrics["loss"])
+    stamps.append(_stamp(torch, dev))
+    step_ms = _gaps_ms(torch, dev, stamps)
+    losses = [float(v) for v in losses]
+    check(all(np.isfinite(losses)), f"{label}: loss not finite {losses}")
+    check(losses[-1] < losses[0], f"{label}: loss did not fall {losses}")
+    row = {"config": {"arch": arch, "n_layers": cfg.n_layers,
+                      "blocks": cfg.blocks(), "d_model": cfg.d_model,
+                      "vocab": cfg.vocab, "params": n_params(TLM.descs(cfg)),
+                      "param_dtype": str(cfg.param_dtype),
+                      "remat": cfg.remat, "batch": TRAIN_BATCH,
+                      "seq": TRAIN_SEQ, "lr": ocfg.lr,
+                      "quantized_state": True, "seed": ARCH_SEED},
+           **init, "losses": losses, "step_ms": step_ms}
+    if cfg.n_experts:
+        with torch.no_grad():
+            b = batch(0)
+            _, _, aux = TLM.backbone(params, TLM.embed_tokens(
+                params, b["tokens"], cfg), cfg, qat=True)
+        row["moe_aux_loss"] = float(aux)
+    if dev == "cuda":
+        b = batch(ARCH_TRAIN_STEPS)
+        prof = _profile_ms(torch, lambda: step(params, opt, b))
+        med = statistics.median(step_ms)
+        row.update({"ms_per_step": med, **prof,
+                    "idle_share": 1 - prof["device_busy_ms"] / med,
+                    "peak_memory_gb":
+                        torch.cuda.max_memory_allocated() / 2 ** 30})
+    print(f"  {label} ({row['config']['params']:,} params, batch "
+          f"{TRAIN_BATCH} x {TRAIN_SEQ}, QAT): loss "
+          + " -> ".join(f"{v:.4f}" for v in losses)
+          + (f", MoE aux {row['moe_aux_loss']:.6f}" if cfg.n_experts
+             else "")
+          + (f"; steps {', '.join(f'{v:.1f}' for v in step_ms)} ms; "
+             f"profiled step: busy {row['device_busy_ms']:.1f} ms, idle "
+             f"{row['idle_share']:.2f}, {row['device_ops']} device ops; "
+             f"peak {row['peak_memory_gb']:.2f} GiB" if dev == "cuda"
+             else ""), flush=True)
+    del opt, step
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+
+    # the STE steps: qat off, the projections through the backends
+    def ste(backend, b):
+        c = dataclasses.replace(cfg, quant=for_lm(backend))
+        _sync(torch, dev)
+        t0 = time.perf_counter()
+        with training_numerics():
+            out = value_and_grad(
+                lambda p, bb: TLM.forward_loss(p, bb, c, qat=False,
+                                               training=True), params, b)
+        _sync(torch, dev)
+        return out, time.perf_counter() - t0
+
+    ste_s = {}
+    K.reset_launch_counts()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        b = batch(0)
+        runs = {}
+        for be in STE_PAIR:
+            runs[be], ste_s[be] = ste(be, b)
+        n_leaves = _grads_equal(torch, label, runs[STE_PAIR[0]],
+                                runs[STE_PAIR[1]], STE_PAIR)
+        row["ste"] = {"loss": float(runs[STE_PAIR[0]][0]),
+                      "leaves_bitwise": n_leaves, "s": dict(ste_s)}
+        del runs
+        cut = batch(0, *CUT_BATCH)
+        for be, oracle in ORACLE_PAIRS:
+            a, ste_s[be + " cut"] = ste(be, cut)
+            o, ste_s[oracle + " cut"] = ste(oracle, cut)
+            _grads_equal(torch, f"{label} cut batch", a, o, (be, oracle))
+            del a, o
+    finally:
+        torch.use_deterministic_algorithms(False)
+    for key, n in launch_counts(K).items():
+        launches[key] += n
+    row["ste"]["cut_batch"] = list(CUT_BATCH)
+    row["ste"]["s"] = ste_s
+    print(f"  {label} STE steps (qat off, deterministic): "
+          f"{STE_PAIR[0]} == {STE_PAIR[1]} in the loss and all "
+          f"{n_leaves} gradient leaves, bit for bit; cut batch "
+          f"{CUT_BATCH[0]} x {CUT_BATCH[1]}: "
+          + ", ".join(f"{a} == {o}" for a, o in ORACLE_PAIRS)
+          + "; seconds " + ", ".join(f"{k} {v:.1f}" for k, v in
+                                     ste_s.items()), flush=True)
+    return row
+
+
+def train_phase(torch, detail, dev: str, full: bool) -> tuple:
+    """Phase 12 (see the module docstring): the train loop (part a) and
+    each arch's training steps (part b). Returns the train line and the
+    STE steps' kernel launches (the 'train' path)."""
+    from repro_torch.kernels import approx_matmul as K
+
+    launches = {key: 0 for key in launch_counts(K)}
+    out = {"loop": train_loop_check(torch, dev, full)}
+    for arch in TRAIN_ARCHS:
+        out[arch] = train_arch_check(torch, dev, full, arch, launches)
+        if dev == "cuda":
+            torch.cuda.empty_cache()
+    detail["train"] = out
     return out, launches
 
 

@@ -11,6 +11,12 @@ this update: it rounds in another order and decays biases too.
 Quantized mode (the 8-bit-Adam-style trick):
   m : bfloat16
   v : int8 code + fp32 blockwise scale over the last dim (block = 128)
+
+A leaf of more than UPDATE_SLICE elements is updated in slices of whole
+rows, so that the update's float32 temporaries stay one slice large (a
+1.26 B-element expert leaf of deepseek-v2 would need some 30 GB of them at
+once); every step of the update is elementwise or per block of the last
+dim, so the numbers are the whole leaf's.
 """
 from __future__ import annotations
 
@@ -21,6 +27,7 @@ import torch
 import torch.nn.functional as Fn
 
 VBLOCK = 128
+UPDATE_SLICE = 1 << 24   # elements of a leaf updated at once
 
 
 @dataclasses.dataclass(frozen=True)
@@ -140,7 +147,7 @@ def update(grads, state, params, cfg: AdamWConfig):
     corr1 = 1 - b1 ** cf
     corr2 = 1 - b2 ** cf
 
-    def per_param(g, st, p):
+    def rows(g, st, p, decay: bool):
         g = g.to(torch.float32) * clip
         m = st["m"].to(torch.float32)
         v = (_dequantize_v(st["v_q"], st["v_scale"])
@@ -150,14 +157,39 @@ def update(grads, state, params, cfg: AdamWConfig):
         mhat = m / corr1
         vhat = v / corr2
         upd = mhat / (torch.sqrt(vhat) + cfg.eps)
-        if p.ndim >= 2:                      # decay matrices only
+        if decay:                            # decay matrices only
             upd = upd + cfg.weight_decay * p.to(torch.float32)
         new_p = (p.to(torch.float32) - cfg.lr * upd).to(p.dtype)
         if cfg.quantized_state:
             q, scale = _quantize_v(v)
-            new_st = {"m": m.to(torch.bfloat16), "v_q": q, "v_scale": scale}
-        else:
-            new_st = {"m": m, "v": v}
+            return new_p, {"m": m.to(torch.bfloat16), "v_q": q,
+                           "v_scale": scale}
+        return new_p, {"m": m, "v": v}
+
+    def per_param(g, st, p):
+        decay = p.ndim >= 2
+        if p.numel() <= UPDATE_SLICE or p.ndim < 2:
+            return rows(g, st, p, decay)
+        # every step is elementwise or per block of the last dim, so
+        # slices of whole rows give the whole leaf's numbers, with float32
+        # temporaries of one slice
+        def flat(t):
+            return t.reshape(-1, t.shape[-1])
+
+        new_p = torch.empty(p.shape, dtype=p.dtype, device=p.device)
+        new_st = {k: torch.empty(t.shape, dtype=t.dtype, device=t.device)
+                  for k, t in st.items()}
+        g2, p2 = flat(g), flat(p)
+        st2 = {k: flat(t) for k, t in st.items()}
+        out_p, out_st = flat(new_p), {k: flat(t) for k, t in new_st.items()}
+        step = max(1, UPDATE_SLICE // p.shape[-1])
+        for r0 in range(0, p2.shape[0], step):
+            sl = slice(r0, r0 + step)
+            p1, s1 = rows(g2[sl], {k: t[sl] for k, t in st2.items()},
+                          p2[sl], decay)
+            out_p[sl] = p1
+            for k, t in s1.items():
+                out_st[k][sl] = t
         return new_p, new_st
 
     flat_s = dict(flatten(state["params"], ()))
