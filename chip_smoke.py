@@ -31,10 +31,12 @@ Phases, each printing its seconds:
             gemma3-27b's and deepseek-v2's decode shapes (the gemma3 head,
             5,376 x 262,144, in 37 column tiles of RANK1) and gemma3's
             1,000-token prefill, and at rwkv6-3b's and hymba-1.5b's decode
-            shapes (SSM_LAYERS), and at the train path's shapes
-            (TRAIN_LAYERS: every projection and head of the five trained
-            archs at 8 x 64 tokens, each entry and plain version timed
-            over the one call checked); K3 and
+            shapes (SSM_LAYERS), at llama-3.2-vision-11b's and
+            musicgen-large's decode shapes and llama's cross-attention K
+            and V over 4 x 1,601 encoder states (XATTN_LAYERS), and at the
+            train path's shapes (TRAIN_LAYERS: every projection and head
+            of the seven trained archs at 8 x 64 tokens, each entry and
+            plain version timed over the one call checked); K3 and
             K4 in 24 column tiles of a small
             budget; printing the CUDA-core plan
             (tile, K slices) of each; hold every backend's
@@ -82,7 +84,7 @@ Phases, each printing its seconds:
             step, cuDNN deterministic against not, and each sweep point's
             seconds; the artifacts are written to build/torch_eval/;
 7. serve    smollm-135m at its published width, its first SERVE_DEPTH
-            (15) of 30 layers (d_model 576, vocab 49152, bf16 parameters
+            (8) of 30 layers (d_model 576, vocab 49152, bf16 parameters
             from the port's own init at seed 0; the depth is cut to keep
             the script inside its time limit) through
             repro_torch.serve.Engine, continuous batching
@@ -95,7 +97,7 @@ Phases, each printing its seconds:
             (kernel K1) equals its fused run; the probe request (admitted
             mid-decode on a prefix-cache hit) served alone on a cold engine
             gives the same tokens; the prefix hit rate is above 0; one
-            decode step launches 106 kernels (7 projections x 15 layers +
+            decode step launches 57 kernels (7 projections x 8 layers +
             the head). Each backend serves the workload twice (the tokens
             must agree); per run, ms per decode step (median, host clock
             around each step, synchronized), TTFT and tokens/s. Per
@@ -125,8 +127,8 @@ Phases, each printing its seconds:
             approx_deficit_pallas, unpaged at exact prompt lengths
             (max_len 112: the window of 1,024 masks, no ring wraps), with
             the peak memory; then its first 6 layers (one 5:1 group, the
-            window as published) serve 4 requests of 1,000-1,020 prompt
-            tokens and 32-48 new into 2 slots at max_len 1,088, so that
+            window as published) serve 4 requests of 1,012-1,020 prompt
+            tokens and 14-20 new into 2 slots at max_len 1,088, so that
             decode wraps the rings, under bf16 and the three CUDA
             backends: deficit's and rank1's tokens and every sampled logits
             row bitwise equal; each CUDA backend equal to its oracle
@@ -190,18 +192,43 @@ Phases, each printing its seconds:
             and on a cut batch of 1 x 16 tokens approx_deficit_pallas's
             equal approx_lut's and approx_stage1_pallas's
             approx_stage1's;
-13. launch counts, set to 0 before each of phases 4, 5 and 6 (the suite
+13. xattn  llama-3.2-vision-11b (40 layers as 8 x (4 self + 1 cross),
+            d_model 4,096, 32 / 8 heads of 128, SwiGLU d_ff 14,336, the
+            tied 128,256-wide head, encoder states of 1,601 x 1,280;
+            9,255,063,552 bf16 parameters) and musicgen-large (48 layers,
+            d_model 2,048, 32 heads of 64, gelu d_ff 8,192, frame
+            embeddings in place of tokens, 4 float codebook heads of
+            2,048; 2,432,894,976) at their published widths from seed 0,
+            their stub inputs drawn by a generator seeded per arch: each
+            whole model decodes 4 rows (a 32-token or 32-frame prompt,
+            then 16 greedy steps of train.steps.make_serve_step, llama's
+            cross layers recomputing K and V from the encoder states on
+            every step, musicgen taking a fresh frame a step) under bf16
+            and approx_deficit_pallas: the prefill's ms, each step's ms,
+            one profiled step's busy ms, kernels, idle share, device ops
+            and launches, the peak memory; then the first layers (llama
+            5, its first group; musicgen 4; the head whole) decode 4 steps
+            under the oracles approx_lut and approx_stage1 and the three
+            CUDA backends: each CUDA backend's codes and every logits row
+            bitwise equal to its oracle's, and deficit's to rank1's; with
+            the cut draw cast to float32, the last step's logits within
+            XATTN_RTOL of their range of a cache-free forward (the bf16
+            figure printed); then each arch trains as in phase 12 (llama at
+            depth 5, 1.6 B parameters; musicgen whole; batches of 8 x 64
+            with 8 x 1,601 encoder states, or frame embeddings with
+            8 x 64 x 4 codebook labels);
+14. launch counts, set to 0 before each of phases 4, 5 and 6 (the suite
    runners' calls), 7 (the served runs), 8 (the speculative runs), the
-   served runs of 9, 10 and 11 and the STE steps of 12, and read after
-   it: LeNet-5 and FFDNet each launch every entry but
-   fused_matmul[exact], the suites, spec, train and the ring, deepseek
-   and ssm paths every fused entry, the serve path K2[deficit],
+   served runs of 9, 10, 11 and 13 and the STE steps of 12 and 13, and
+   read after it: LeNet-5 and FFDNet each launch every entry but
+   fused_matmul[exact], the suites, spec, train, xattn and the ring,
+   deepseek and ssm paths every fused entry, the serve path K2[deficit],
    K2[stage1], K4 and (unfused) K1[stage1], full-depth gemma3
    K2[deficit];
-14. one JSON line each ``{"suites": {...}}``, ``{"serve": {...}}``,
+15. one JSON line each ``{"suites": {...}}``, ``{"serve": {...}}``,
    ``{"spec": {...}}``, ``{"gemma": {...}}``,
-   ``{"deepseek": {...}}``, ``{"ssm": {...}}``, ``{"train": {...}}`` and
-   ``{"kernels": [...]}``;
+   ``{"deepseek": {...}}``, ``{"ssm": {...}}``, ``{"train": {...}}``,
+   ``{"xattn": {...}}`` and ``{"kernels": [...]}``;
 then the ``nvidia-smi`` name and power limit, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure raises: the script exits
 non-zero and prints no result. It imports nothing of JAX.
@@ -302,7 +329,8 @@ ARCH_VARIANTS = SUITE_VARIANTS
 PATH_NEEDS = {"suites": SUITE_VARIANTS, "serve": SERVE_VARIANTS,
               "spec": SUITE_VARIANTS, "gemma": [("fused_matmul", "deficit")],
               "gemma_ring": ARCH_VARIANTS, "deepseek": ARCH_VARIANTS,
-              "ssm": ARCH_VARIANTS, "train": ARCH_VARIANTS}
+              "ssm": ARCH_VARIANTS, "train": ARCH_VARIANTS,
+              "xattn": ARCH_VARIANTS}
 
 LENET_LAYERS = {  # (B, M, K, N) of each quantized matmul at batch 50
     "lenet5.c1": (50, 784, 25, 6), "lenet5.c2": (50, 196, 150, 16),
@@ -369,10 +397,24 @@ SSM_LAYERS = {  # rwkv6-3b and hymba-1.5b: decode of 4 slots; held for the
     "hymba.decode.gu": (4, 1, 1600, 5504),
     "hymba.decode.down": (4, 1, 5504, 1600),
     "hymba.decode.head": (4, 1, 1600, 32256)}
+XATTN_LAYERS = {  # llama-3.2-vision-11b and musicgen-large: decode of 4
+    # slots, and llama's cross-attention K and V over the 4 x 1,601 encoder
+    # states, recomputed on every decode step; held for the LM routes only,
+    # as ARCH_LAYERS (musicgen's codebook head is a float product)
+    "llama.decode.q": (4, 1, 4096, 4096),       # q, o; the cross layer's q
+    "llama.decode.kv": (4, 1, 4096, 1024),      # the self layers' k, v
+    "llama.decode.gu": (4, 1, 4096, 14336),
+    "llama.decode.d": (4, 1, 14336, 4096),
+    "llama.decode.head": (4, 1, 4096, 128256),  # the tied embedding
+    "llama.cross.kv": (4, 1601, 4096, 1024),
+    "musicgen.decode.d": (4, 1, 2048, 2048),    # q, k, v, o
+    "musicgen.decode.up": (4, 1, 2048, 8192),
+    "musicgen.decode.down": (4, 1, 8192, 2048)}
 # The train path (phase 12): the STE step's batch of 8 x 64 tokens
 # through each trained arch's projections and head, the (K, N) of the
 # decode shapes above (smollm-135m's o is its q's; deepseek-v2's experts
-# run as float products). Their plain versions take up to 24 s a call:
+# run as float products); phase 13's archs train at the same shapes. Their
+# plain versions take up to 24 s a call:
 # the kernel, its plain version and RANK1's operand build are each timed
 # over the one call that is checked, and TRAIN_REPS runs of the kernel
 # profiled.
@@ -380,10 +422,11 @@ TRAIN_ROWS = (8, 64)
 TRAIN_LAYERS = {
     label.replace(".decode.", ".train."): (*TRAIN_ROWS, k, n)
     for label, (_, _, k, n) in {**SERVE_LAYERS, **ARCH_LAYERS,
-                                **SSM_LAYERS}.items()
+                                **SSM_LAYERS, **XATTN_LAYERS}.items()
     if ".decode." in label}
 TRAIN_REPS = 1
-LM_ROUTE_LAYERS = {**ARCH_LAYERS, **SSM_LAYERS, **TRAIN_LAYERS}
+LM_ROUTE_LAYERS = {**ARCH_LAYERS, **SSM_LAYERS, **XATTN_LAYERS,
+                   **TRAIN_LAYERS}
 # RANK1's column tiles under a small budget (rank1_column_tiles): 24 tiles
 TILED_LAYER = ("smollm.decode.up", 576 * (8 + 104) * 64)
 TIMED_LAYERS = {**LAYERS, **SERVE_LAYERS, **VERIFY_LAYERS, **LM_SUITE_LAYERS,
@@ -499,6 +542,10 @@ def main() -> int:
     with Phase("train"):
         lines["train"], paths["train"] = train_phase(torch, detail, "cuda",
                                                      full=True)
+    torch.cuda.empty_cache()
+    with Phase("xattn"):
+        lines["xattn"], paths["xattn"] = xattn_phase(torch, detail, "cuda",
+                                                     full=True, ops=ops)
 
     with Phase("launches"):
         for name, var, _ in ROWS:
@@ -1639,7 +1686,7 @@ SERVE_UNFUSED = "approx_stage1_pallas"
 SHARED_PREFIX = 8        # one full page at the engine's page_size 8
 PROJECTIONS_PER_LAYER = 7   # q, k, v, o, gate, up, down
 SERVE_REPS = 2           # the workload served this many times per backend
-SERVE_DEPTH = 15         # smollm-135m's layers served in phases 7-8 (of 30)
+SERVE_DEPTH = 8          # smollm-135m's layers served in phases 7-8 (of 30)
 STEP_REPS = 20           # timed calls of a fixed-shape decode step
 
 
@@ -1704,7 +1751,9 @@ def _serve_shapes(cfg) -> list:
     attention's (GQA q, k, v, o; MLA wq, wdkv, wo), the dense MLP's (gate,
     up, down; a mixture-of-experts layer's products are float), and the
     head; RWKV6's time mix (r, k, v, g, o) and channel mix (k, v, r);
-    hymba's attention, Mamba (in, x, out) and MLP."""
+    hymba's attention, Mamba (in, x, out) and MLP. A cross layer's k and v
+    take the projected encoder states (d_model wide); a gelu MLP has up and
+    down; musicgen's codebook head is a float product (no launch)."""
     d, f, kvd = cfg.d_model, cfg.d_ff, cfg.n_kv_heads * cfg.dh
     qd = cfg.n_heads * cfg.dh
     if cfg.ssm == "rwkv6":
@@ -1724,8 +1773,11 @@ def _serve_shapes(cfg) -> list:
     else:
         layer = [(d, qd), (d, kvd), (d, kvd), (qd, d)]
     if not cfg.n_experts:
-        layer += [(d, f), (d, f), (f, d)]
-    return layer * cfg.n_layers + [(d, cfg.padded_vocab)]
+        layer += ([(d, f), (d, f), (f, d)] if cfg.mlp_act in ("swiglu",
+                                                              "geglu")
+                  else [(d, f), (f, d)])
+    head = [] if cfg.n_codebooks > 1 else [(d, cfg.padded_vocab)]
+    return layer * cfg.n_layers + head
 
 
 def _step_launches(K, cfg, variant: str) -> int:
@@ -2257,15 +2309,17 @@ DSV2_SPEC = ("approx_deficit_pallas", 4, "approx_stage1_pallas")
 def ring_workload(vocab: int, full: bool, seed: int = 0):
     """Long prompts from the seeded ``token_stream`` whose decode wraps the
     local layers' rings: 4 requests into 2 slots (admission mid-decode),
-    prompts of 1,000-1,020 tokens, 32-48 new tokens each, max_len 1,088
-    (so that the rings hold the whole window of 1,024). Without ``full``
+    prompts of 1,012-1,020 tokens, 14-20 new tokens each (every request
+    decodes past position 1,024), max_len 1,088 (so that the rings hold
+    the whole window of 1,024); the decode is kept short, since RANK1
+    takes about 1.5 s a step here. Without ``full``
     the same shape for the reduced gemma3's window of 8: prompts of 5-8
     tokens, 8-12 new, max_len 24. Returns (requests, slots, max_len)."""
     from repro_torch.data import synthetic
     rng = np.random.default_rng(seed + 13)
     n, slots = 4, 2
     if full:
-        (lo, hi), (nlo, nhi), max_len = (1000, 1021), (32, 49), 1088
+        (lo, hi), (nlo, nhi), max_len = (1012, 1021), (14, 21), 1088
     else:
         (lo, hi), (nlo, nhi), max_len = (5, 9), (8, 13), 24
     stream = synthetic.token_stream(n, hi, vocab, seed=seed)
@@ -3192,8 +3246,24 @@ def _grads_equal(torch, label: str, a: tuple, b: tuple, names: tuple) -> int:
     return len(fa)
 
 
+def _token_batches(torch, cfg, dev: str):
+    """batch(i, rows, seq): rows of a seeded ``token_stream``, tokens and
+    their next-token labels, from row i * TRAIN_BATCH."""
+    from repro_torch.data import synthetic
+    toks = synthetic.token_stream(4 * TRAIN_BATCH, TRAIN_SEQ + 1, cfg.vocab,
+                                  seed=0)
+
+    def batch(i, rows=TRAIN_BATCH, seq=TRAIN_SEQ):
+        t = toks[i * TRAIN_BATCH:i * TRAIN_BATCH + rows]
+        return {"tokens": torch.as_tensor(t[:, :seq], device=dev),
+                "labels": torch.as_tensor(t[:, 1:seq + 1], device=dev)}
+
+    return batch
+
+
 def train_arch_check(torch, dev: str, full: bool, arch: str,
-                     launches: dict) -> dict:
+                     launches: dict, depth_count=None,
+                     batches=_token_batches) -> dict:
     """Part (b), one arch: ARCH_TRAIN_STEPS ``make_train_step(qat=True)``
     steps (quantized AdamW, bf16 parameters from seed 0) with a finite,
     falling loss, their ms, one profiled step, the peak memory and (MoE)
@@ -3201,9 +3271,10 @@ def train_arch_check(torch, dev: str, full: bool, arch: str,
     under approx_deficit_pallas and approx_rank1_pallas on the same batch,
     bitwise equal, and on a cut batch each CUDA backend against its
     oracle, bitwise; the kernel launches of the STE steps counted into
-    ``launches``."""
+    ``launches``. ``depth_count``: the depth (None: whole) and its
+    parameter count, TRAIN_ARCHS's by default; ``batches(torch, cfg,
+    dev)`` gives batch(i, rows, seq)."""
     from repro_torch.configs import registry
-    from repro_torch.data import synthetic
     from repro_torch.kernels import approx_matmul as K
     from repro_torch.models import transformer_lm as TLM
     from repro_torch.nn.module import n_params
@@ -3212,7 +3283,7 @@ def train_arch_check(torch, dev: str, full: bool, arch: str,
     from repro_torch.train import steps as ST
     from repro_torch.train.cnn_train import training_numerics, value_and_grad
 
-    depth, n_want = TRAIN_ARCHS[arch]
+    depth, n_want = depth_count or TRAIN_ARCHS[arch]
     if full:
         cfg = registry.get(arch)
         if depth:
@@ -3229,14 +3300,7 @@ def train_arch_check(torch, dev: str, full: bool, arch: str,
     ocfg = adamw.AdamWConfig(lr=TRAIN_LR, quantized_state=True)
     opt = adamw.init(params, ocfg)
     step = ST.make_train_step(cfg, ocfg, qat=True)
-    toks = synthetic.token_stream(4 * TRAIN_BATCH, TRAIN_SEQ + 1, cfg.vocab,
-                                  seed=0)
-
-    def batch(i, rows=TRAIN_BATCH, seq=TRAIN_SEQ):
-        t = toks[i * TRAIN_BATCH:i * TRAIN_BATCH + rows]
-        return {"tokens": torch.as_tensor(t[:, :seq], device=dev),
-                "labels": torch.as_tensor(t[:, 1:seq + 1], device=dev)}
-
+    batch = batches(torch, cfg, dev)
     losses, stamps = [], []
     b = batch(0)        # one batch: the loss falls with no batch noise
     for _ in range(ARCH_TRAIN_STEPS):
@@ -3344,6 +3408,366 @@ def train_phase(torch, detail, dev: str, full: bool) -> tuple:
         if dev == "cuda":
             torch.cuda.empty_cache()
     detail["train"] = out
+    return out, launches
+
+
+# ---------------------------------------------------------------------------
+# Phase 13: cross-attention, stub embeddings and codebook heads
+# ---------------------------------------------------------------------------
+
+# published fields (n_layers, d_model, n_heads, n_kv_heads, d_ff, vocab,
+# enc_dim, enc_len, n_codebooks), parameter count, the oracle checks'
+# depth (the head whole; llama: its first group, four self layers and a
+# cross layer) and the training depth (None: whole) with its count
+XATTN_ARCHS = {
+    "llama-3.2-vision-11b": ((40, 4096, 32, 8, 14336, 128256, 1280, 1601, 1),
+                             9_255_063_552, 5, (5, 1_621_143_552)),
+    "musicgen-large": ((48, 2048, 32, 32, 8192, 2048, 0, 0, 4),
+                       2_432_894_976, 4, (None, 2_432_894_976))}
+XATTN_SERVE = (4, 32, 16)    # rows, prompt tokens (frames), greedy steps
+XATTN_BACKENDS = ("bf16", "approx_deficit_pallas")   # the whole models
+XATTN_ORACLE_STEPS = 4
+# The last decode step's logits against a cache-free forward over the whole
+# sequence, with the cut model's weights cast to float32 (the reference's
+# tests/test_archs.py holds 1e-4 on its reduced configs); with the bf16
+# weights the figure is printed, not held: deep bf16 stacks' own forward
+# forms drift apart by more (phase 11).
+XATTN_RTOL = 1e-3
+
+
+def xattn_inputs(torch, cfg, rows: int, length: int, dev: str, seed: int):
+    """The stub inputs of a serving, drawn on the host by a torch.Generator
+    seeded per arch, in the parameter dtype: llama's prompt tokens (rows,
+    length) and encoder states (rows, enc_len, enc_dim) (no vision
+    frontend in either package); musicgen's frame embeddings (rows,
+    length, d_model): the prompt's and one fresh frame a decode step (no
+    EnCodec frontend)."""
+    gen = torch.Generator().manual_seed(seed)
+    if cfg.embed_stub:
+        return {"frames": torch.randn((rows, length, cfg.d_model),
+                                      generator=gen).to(cfg.param_dtype
+                                                        ).to(dev)}
+    toks = torch.randint(0, cfg.vocab, (rows, length), generator=gen)
+    enc = torch.randn((rows, cfg.enc_len, cfg.enc_dim), generator=gen)
+    return {"tokens": toks.to(dev), "enc": enc.to(cfg.param_dtype).to(dev)}
+
+
+def _xattn_batches(torch, cfg, dev: str):
+    """batch(i, rows, seq) of the training steps: llama's token_stream rows
+    with encoder states (seeded draws); musicgen's frame embeddings with
+    (rows, seq, 4) codebook labels."""
+    from repro_torch.data import synthetic
+    gen = torch.Generator().manual_seed(ARCH_SEED + 20)
+    n = 4 * TRAIN_BATCH
+    if cfg.embed_stub:
+        x = torch.randn((n, TRAIN_SEQ, cfg.d_model), generator=gen
+                        ).to(cfg.param_dtype)
+        y = torch.randint(0, cfg.vocab, (n, TRAIN_SEQ, cfg.n_codebooks),
+                          generator=gen)
+    else:
+        toks = torch.as_tensor(synthetic.token_stream(
+            n, TRAIN_SEQ + 1, cfg.vocab, seed=0), dtype=torch.int64)
+        x, y = toks[:, :-1], toks[:, 1:]
+        enc = torch.randn((n, cfg.enc_len, cfg.enc_dim), generator=gen
+                          ).to(cfg.param_dtype)
+
+    def batch(i, rows=TRAIN_BATCH, seq=TRAIN_SEQ):
+        sl = slice(i * TRAIN_BATCH, i * TRAIN_BATCH + rows)
+        out = {"embeds" if cfg.embed_stub else "tokens": x[sl, :seq].to(dev),
+               "labels": y[sl, :seq].to(dev)}
+        if cfg.cross_every:
+            out["enc"] = enc[sl].to(dev)
+        return out
+
+    return batch
+
+
+def _xattn_serve(torch, TLM, ST, cfg, params, inp, prompt: int, steps: int,
+                 dev: str) -> dict:
+    """A prefill of ``prompt`` tokens (frames) and ``steps`` greedy steps
+    through ``train.steps.make_serve_step`` at uniform positions into a
+    float32 cache: llama feeds each step's token back, musicgen takes the
+    next frame. Every logits row (prefill's and each step's) is kept, read
+    from ``transformer_lm.decode_step`` as the step returns it. Returns
+    the codes, rows, prefill ms, each step's ms (host clock,
+    synchronized), the serve step and the state of its last call."""
+    rows_n = next(iter(inp.values())).shape[0]
+    enc = inp.get("enc")
+    serve = ST.make_serve_step(cfg)
+    cache = TLM.init_cache(cfg, rows_n, prompt + steps, torch.float32, dev)
+    rows, codes, step_ms = [], [], []
+    inner = TLM.decode_step
+
+    def record(*args, **kw):
+        lg, c = inner(*args, **kw)
+        rows.append(lg.float().cpu().numpy())
+        return lg, c
+
+    def step_input(j, nxt):
+        return (inp["frames"][:, prompt + j:prompt + j + 1] if cfg.embed_stub
+                else nxt.long())
+
+    with torch.no_grad():
+        x0 = (inp["frames"][:, :prompt] if cfg.embed_stub
+              else inp["tokens"][:, :prompt])
+        _sync(torch, dev)
+        t0 = time.perf_counter()
+        lg, cache = TLM.prefill(params, x0, cfg, cache, enc=enc)
+        _sync(torch, dev)
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        rows.append(lg.float().cpu().numpy())
+        nxt = torch.argmax(lg[:, -1] if cfg.n_codebooks > 1 else lg[:, -1:],
+                           dim=-1).to(torch.int32)
+        codes.append(nxt.cpu().numpy())
+        TLM.decode_step = record
+        try:
+            for j in range(steps):
+                tok = step_input(j, nxt)
+                _sync(torch, dev)
+                t0 = time.perf_counter()
+                nxt, cache = serve(params, cache, tok, prompt + j, enc)
+                _sync(torch, dev)
+                step_ms.append((time.perf_counter() - t0) * 1e3)
+                codes.append(nxt.cpu().numpy())
+        finally:
+            TLM.decode_step = inner
+    return {"codes": codes, "rows": rows, "prefill_ms": prefill_ms,
+            "step_ms": step_ms, "serve": serve, "cache": cache,
+            "last": (tok, prompt + steps - 1, enc)}
+
+
+def _xattn_sequence(torch, cfg, inp, run, prompt: int, steps: int):
+    """The whole input sequence of a serving's last decode step: the
+    prompt and each step's input (llama: the served tokens fed back)."""
+    if cfg.embed_stub:
+        return inp["frames"][:, :prompt + steps]
+    fed = [torch.as_tensor(c, device=inp["tokens"].device).long()
+           for c in run["codes"][:steps]]
+    return torch.cat([inp["tokens"][:, :prompt]] + fed, dim=1)
+
+
+def _xattn_cache_free(torch, TLM, ST, cfg, params, inp, prompt, steps,
+                      dev) -> float:
+    """Serve under bf16, then the last decode step's logits against a
+    cache-free forward (``backbone`` over the whole sequence, the encoder
+    states projected again): the largest difference over their range."""
+    from repro_torch.quant.quantize import for_lm
+    cfg = dataclasses.replace(cfg, quant=for_lm("bf16"))
+    run = _xattn_serve(torch, TLM, ST, cfg, params, inp, prompt, steps, dev)
+    seq = _xattn_sequence(torch, cfg, inp, run, prompt, steps)
+    with torch.no_grad():
+        h, _, _ = TLM.backbone(params, TLM.embed_tokens(params, seq, cfg),
+                               cfg, enc=inp.get("enc"))
+        ref = TLM.lm_logits(params, h[:, -1:], cfg).float().cpu().numpy()
+    v = cfg.vocab
+    got = run["rows"][-1][..., :v]
+    ref = ref[..., :v]
+    return float(np.abs(got - ref).max() / max(float(np.ptp(ref)), 1e-30))
+
+
+def _xattn_bound_ms(cfg, rows: int, variant: str, ops, fac) -> float:
+    """``_serve_bound_ms`` of a decode step, with each cross layer's k and
+    v at rows x enc_len rows (the encoder states') in place of rows."""
+    n_cross = cfg.blocks()[0][0] * cfg.blocks()[0][1].count("cross")
+    kvd = cfg.n_kv_heads * cfg.dh
+
+    def kv(r):
+        return 2 * n_cross * _bound("fused_matmul", variant, r, cfg.d_model,
+                                    kvd, fac, ops)[0]
+
+    return (_serve_bound_ms(cfg, rows, variant, ops, fac)
+            + kv(rows * cfg.enc_len) - kv(rows))
+
+
+def _xattn_arch(torch, dev, full, ops, arch, launches) -> dict:
+    """One arch of phase 13 (see the module docstring)."""
+    from repro_torch.configs import registry
+    from repro_torch.core import factor as F
+    from repro_torch.kernels import approx_matmul as K
+    from repro_torch.models import transformer_lm as TLM
+    from repro_torch.nn.module import n_params
+    from repro_torch.quant import matmul as QM
+    from repro_torch.quant.quantize import for_lm
+    from repro_torch.train import steps as ST
+
+    fac = F.factorize("proposed")
+    fields, count, depth, _ = XATTN_ARCHS[arch]
+    if full:
+        cfg0 = registry.get(arch)
+        rows_n, prompt, steps = XATTN_SERVE
+        check((cfg0.n_layers, cfg0.d_model, cfg0.n_heads, cfg0.n_kv_heads,
+               cfg0.d_ff, cfg0.vocab, cfg0.enc_dim, cfg0.enc_len,
+               cfg0.n_codebooks) == fields
+              and n_params(TLM.descs(cfg0)) == count
+              and cfg0.param_dtype == torch.bfloat16,
+              f"unexpected {arch} config {cfg0}")
+    else:
+        cfg0 = registry.reduced(arch, param_dtype=torch.bfloat16)
+        rows_n, prompt, steps = 4, 8, 4
+        depth = min(depth, cfg0.n_layers)
+    label = f"{arch} L{cfg0.n_layers}"
+    seed = ARCH_SEED + list(XATTN_ARCHS).index(arch)
+    params, init = _init_arch(torch, TLM, cfg0, dev)
+    out = {"config": {"arch": arch, "n_layers": cfg0.n_layers,
+                      "blocks": cfg0.blocks(), "d_model": cfg0.d_model,
+                      "vocab": cfg0.vocab, "enc": [cfg0.enc_len,
+                                                   cfg0.enc_dim],
+                      "n_codebooks": cfg0.n_codebooks,
+                      "params": n_params(TLM.descs(cfg0)),
+                      "param_dtype": str(cfg0.param_dtype),
+                      "seed": ARCH_SEED, "input_seed": seed},
+           **init, "serving": {"rows": rows_n, "prompt": prompt,
+                               "steps": steps, "cache_dtype": "float32"}}
+    print(f"  {arch} {out['config']['params']:,} parameters drawn in "
+          f"{init['init_s']:.1f} s (peak {init['init_peak_gb']} GiB)",
+          flush=True)
+    inp = xattn_inputs(torch, cfg0, rows_n, prompt + steps, dev, seed)
+
+    # --- the whole model: prefill and greedy steps, timed and profiled
+    out["whole"] = {}
+    for be in XATTN_BACKENDS:
+        cfg = dataclasses.replace(cfg0, quant=for_lm(be))
+        if dev == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        K.reset_launch_counts()
+        run = _xattn_serve(torch, TLM, ST, cfg, params, inp, prompt, steps,
+                           dev)
+        for key, n in launch_counts(K).items():
+            launches[key] += n
+        check(all(np.isfinite(r).all() for r in run["rows"])
+              and run["rows"][-1].shape == (
+                  (rows_n, 1, cfg.n_codebooks, cfg.padded_vocab)
+                  if cfg.n_codebooks > 1 else (rows_n, 1, cfg.padded_vocab)),
+              f"{label} {be}: bad logits rows")
+        med = statistics.median(run["step_ms"])
+        row = {"decode_step_ms": run["step_ms"], "decode_step_ms_median": med,
+               "prefill_ms": run["prefill_ms"],
+               "codes_shape": list(run["codes"][-1].shape)}
+        if dev == "cuda":
+            row["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 2 ** 30
+            tok, pos, enc = run["last"]
+
+            def step():
+                with torch.no_grad():
+                    run["serve"](params, run["cache"], tok, pos, enc)
+
+            K.reset_launch_counts()
+            prof = _profile_ms(torch, step)
+            n = _launches(K)
+            row.update({**prof, "idle_share": 1 - prof["device_busy_ms"]
+                        / med})
+            if be in CUDA_BACKENDS:
+                var = SERVE_KERNEL[be]
+                want = _step_launches(K, cfg, var)
+                check(n == want, f"{label} {be}: {n} launches in one decode "
+                      f"step, {want} expected")
+                row["launches_per_step"] = n
+                row["step_bound_ms"] = _xattn_bound_ms(cfg, rows_n, var,
+                                                       ops, fac)
+        out["whole"][be] = row
+        print(f"  {label} {be:22s} prefill of {prompt} "
+              f"{'frames' if cfg.embed_stub else 'tokens'}: "
+              f"{run['prefill_ms']:.1f} ms; decode step median {med:.3f} ms "
+              f"({steps} steps, codes {row['codes_shape']})"
+              + (f"; profiled step: busy {row['device_busy_ms']:.3f} ms, port "
+                 f"kernels {row['kernels_ms']:.3f}, idle "
+                 f"{row['idle_share']:.2f}, {row['device_ops']} device ops; "
+                 f"peak {row['peak_memory_gb']:.2f} GiB" if dev == "cuda"
+                 else "")
+              + (f"; {row['launches_per_step']} launches, bound "
+                 f"{row['step_bound_ms']:.3f} ms" if "step_bound_ms" in row
+                 else ""), flush=True)
+        del run
+        if dev == "cuda":
+            torch.cuda.empty_cache()
+
+    # --- the first ``depth`` layers with the whole head: the oracles
+    kinds = cfg0.blocks()[0][1]
+    cut = dataclasses.replace(cfg0, n_layers=depth)
+    n_rep = depth // len(kinds)
+    check(cut.blocks() == [(n_rep, kinds)],
+          f"unexpected depth-{depth} program {cut.blocks()}")
+    pcut = {**params, "blocks": [TLM.map_leaves(
+        lambda t: t[:n_rep].clone(), params["blocks"][0])]}
+    del params
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    oruns, out["depth"] = {}, {"n_layers": depth,
+                               "steps": XATTN_ORACLE_STEPS}
+    for be in SSM_ORACLES + CUDA_BACKENDS:
+        cfg = dataclasses.replace(cut, quant=for_lm(be))
+        t0 = time.perf_counter()
+        K.reset_launch_counts()
+        run = _xattn_serve(torch, TLM, ST, cfg, pcut, inp, prompt,
+                           XATTN_ORACLE_STEPS, dev)
+        for key, n in launch_counts(K).items():
+            launches[key] += n
+        oruns[be] = run
+        out["depth"].setdefault("serving_s", {})[be] = \
+            time.perf_counter() - t0
+    pairs = [(be, QM.get_backend(be).oracle) for be in CUDA_BACKENDS]
+    for a, b in pairs + [("approx_rank1_pallas", "approx_deficit_pallas")]:
+        ra, rb = oruns[a], oruns[b]
+        check(all(np.array_equal(x, y) for x, y in zip(ra["codes"],
+                                                       rb["codes"])),
+              f"{arch} L{depth}: {a}'s codes differ from {b}'s")
+        check(len(ra["rows"]) == len(rb["rows"]) and all(
+            np.array_equal(x, y) for x, y in zip(ra["rows"], rb["rows"])),
+              f"{arch} L{depth}: {a}'s logits rows differ from {b}'s")
+        out["depth"].setdefault("bitwise_rows", {})[f"{a} == {b}"] = \
+            len(ra["rows"])
+    print(f"  {arch} L{depth} (the head whole): each CUDA backend's codes "
+          f"and all {len(oruns['approx_lut']['rows'])} logits rows bitwise "
+          "equal to its oracle's; deficit == rank1; seconds "
+          + ", ".join(f"{k} {v:.1f}" for k, v in
+                      out["depth"]["serving_s"].items()), flush=True)
+    del oruns
+
+    # --- the cache-free check at the cut depth: the draw cast to float32
+    p32 = TLM.map_leaves(lambda t: t.float(), pcut)
+    inp32 = {k: v.float() if v.is_floating_point() else v
+             for k, v in inp.items()}
+    c32 = dataclasses.replace(cut, param_dtype=torch.float32)
+    free = {"float32_weights": _xattn_cache_free(
+        torch, TLM, ST, c32, p32, inp32, prompt, XATTN_ORACLE_STEPS, dev),
+        "bfloat16_weights": _xattn_cache_free(
+        torch, TLM, ST, cut, pcut, inp, prompt, XATTN_ORACLE_STEPS, dev),
+        "rtol": XATTN_RTOL}
+    del p32, inp32
+    check(free["float32_weights"] <= XATTN_RTOL,
+          f"{arch} L{depth}: the last decode step's logits differ from the "
+          f"cache-free forward by {free['float32_weights']:.3g} of their "
+          f"range (float32 weights; tolerance {XATTN_RTOL})")
+    out["depth"]["cache_free"] = free
+    print(f"  {arch} L{depth} bf16: the last decode step within "
+          f"{free['float32_weights']:.3g} of its range of the cache-free "
+          f"forward with float32 weights (tolerance {XATTN_RTOL}); with "
+          f"bfloat16 weights {free['bfloat16_weights']:.3g}", flush=True)
+    del pcut
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+
+    # --- training: QAT steps, the STE steps, the oracles on a cut batch
+    out["train"] = train_arch_check(
+        torch, dev, full, arch, launches,
+        depth_count=XATTN_ARCHS[arch][3], batches=_xattn_batches)
+    return out
+
+
+def xattn_phase(torch, detail, dev: str, full: bool, ops=None) -> tuple:
+    """llama-3.2-vision-11b and musicgen-large (see the module docstring,
+    phase 13): ``full`` runs the published configs from seed 0 on the
+    card; without it the reduced ones on the CPU. Returns the xattn line
+    and the path's kernel launches (the served runs and the STE steps)."""
+    from repro_torch.kernels import approx_matmul as K
+
+    launches = {key: 0 for key in launch_counts(K)}
+    out = {}
+    for arch in XATTN_ARCHS:
+        out[arch] = _xattn_arch(torch, dev, full, ops, arch, launches)
+        if dev == "cuda":
+            torch.cuda.empty_cache()
+    detail["xattn"] = out
     return out, launches
 
 

@@ -2,16 +2,18 @@
 the dense global-attention families (smollm, qwen1.5, deepseek-coder),
 gemma3's 5:1 local:global sliding window, the mixture-of-experts families
 with GQA (kimi-k2) or MLA (deepseek-v2) attention, the attention-free
-RWKV6 and hymba's hybrid of windowed attention and Mamba.
+RWKV6, hymba's hybrid of windowed attention and Mamba, llama-3.2-vision's
+cross-attention layers and musicgen's stub embeddings with codebook heads.
 
 A config compiles to a "block program": a list of (repeat, [layer kinds])
 groups:
 
-  dense / moe :  [(L, ('self',))]
-  gemma3 5:1  :  [(L // 6, ('local',) * 5 + ('global',)),
-                  (1, ('global',) * (L % 6))]
-  rwkv6       :  [(L, ('rwkv',))]
-  hymba       :  [(L, ('hymba',))]
+  dense / moe / audio :  [(L, ('self',))]
+  gemma3 5:1          :  [(L // 6, ('local',) * 5 + ('global',)),
+                          (1, ('global',) * (L % 6))]
+  llama-3.2-vision    :  [(L // 5, ('self',) * 4 + ('cross',))]
+  rwkv6               :  [(L, ('rwkv',))]
+  hymba               :  [(L, ('hymba',))]
 
 Each group's params are stacked on a leading ``repeat`` axis, in the
 reference's layout, so that weights carry across by a tree map
@@ -27,9 +29,15 @@ runs through ``quantized_matmul``, and so through the backend registry:
 the approximate multiplier's CUDA kernels on the card, under the
 ``*_pallas`` backends.
 
-Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-item): cross-attention (llama-3.2 vision), stub embeddings and
-multi-codebook heads (musicgen).
+Encoder inputs and stub embeddings (the frontends are stubs in both
+packages): a cross-attention config takes encoder states ``enc`` (B, Se,
+enc_dim), which ``backbone`` projects to d_model by ``enc_proj`` once per
+call, a float product as in the reference; a cross layer has no cache and
+recomputes its K and V from them on every call, prefill and decode steps
+alike (so does the reference). An ``embed_stub`` config takes (B, S, D)
+frame embeddings in place of token ids. With ``n_codebooks`` > 1 the head
+is a float (C, V, D) table giving (B, S, C, V) logits, outside the backend
+registry as in the reference (no quantization, no QAT, no vocab mask).
 """
 from __future__ import annotations
 
@@ -49,11 +57,6 @@ from repro_torch.nn import ssm as SSM
 from repro_torch.nn.module import (ParamDesc, init_params, resolve_device,
                                    stack)
 from repro_torch.quant.quantize import BF16, QuantConfig
-
-NOT_PORTED = {
-    "io": "stub embeddings and multi-codebook heads (musicgen) are not "
-          "ported yet: ROADMAP.md queue A, item 19",
-}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -114,8 +117,7 @@ class ArchConfig:
 
     def attn_cfg(self, kind: str = "self") -> A.AttnConfig:
         """The attention of a layer of ``kind`` ('self', 'local',
-        'global', hymba's windowed 'hymba_attn'; 'cross' is passed on so
-        that ``A.check_ported`` refuses it)."""
+        'global', 'cross', hymba's windowed 'hymba_attn')."""
         return A.AttnConfig(
             d_model=self.d_model, n_heads=self.n_heads,
             n_kv_heads=self.n_kv_heads, head_dim=self.dh,
@@ -167,15 +169,6 @@ class ArchConfig:
         return [(Lc, ("self",))]
 
 
-def check_ported(cfg: ArchConfig) -> None:
-    """Raise for every part of ``cfg`` this port does not run yet."""
-    if cfg.embed_stub or cfg.n_codebooks > 1:
-        raise NotImplementedError(NOT_PORTED["io"])
-    for _, kinds in cfg.blocks():
-        for kind in kinds:
-            A.check_ported(cfg.attn_cfg(kind))
-
-
 # ---------------------------------------------------------------------------
 # Descriptors
 # ---------------------------------------------------------------------------
@@ -203,7 +196,7 @@ def _layer_desc(cfg: ArchConfig, kind: str, dtype):
         d["mlp"] = _mlp_desc(cfg, dtype)
         return d
     d["attn"] = A.attn_desc(cfg.attn_cfg(kind), dtype)
-    if cfg.n_experts:
+    if cfg.n_experts and kind in ("self", "local", "global"):
         d["moe"] = MOE.moe_desc(cfg.moe_cfg(), dtype)
     else:
         d["mlp"] = _mlp_desc(cfg, dtype)
@@ -211,12 +204,25 @@ def _layer_desc(cfg: ArchConfig, kind: str, dtype):
 
 
 def descs(cfg: ArchConfig):
-    check_ported(cfg)
+    """The parameter tree: no ``embed`` under ``embed_stub``; an ``lm_head``
+    of its own when the embeddings are stubs or untied, a (C, V, D) table
+    with ``n_codebooks`` > 1; ``enc_proj.w`` (enc_dim, d_model) with
+    cross-attention layers."""
     dtype = cfg.param_dtype
-    tree: Dict[str, Any] = {
-        "embed": L.embed_desc(cfg.padded_vocab, cfg.d_model, dtype)}
-    if not cfg.tied_embeddings:
-        tree["lm_head"] = L.embed_desc(cfg.padded_vocab, cfg.d_model, dtype)
+    tree: Dict[str, Any] = {}
+    if not cfg.embed_stub:
+        tree["embed"] = L.embed_desc(cfg.padded_vocab, cfg.d_model, dtype)
+    if cfg.embed_stub or not cfg.tied_embeddings:
+        v = cfg.padded_vocab
+        if cfg.n_codebooks > 1:
+            tree["lm_head"] = {"table": ParamDesc(
+                (cfg.n_codebooks, v, cfg.d_model), (None, "vocab", "embed"),
+                "embed", 0.02, dtype)}
+        else:
+            tree["lm_head"] = L.embed_desc(v, cfg.d_model, dtype)
+    if cfg.cross_every:
+        tree["enc_proj"] = {"w": ParamDesc((cfg.enc_dim, cfg.d_model),
+                                           ("embed", "fsdp"), dtype=dtype)}
     tree["final_ln"] = L.rmsnorm_desc(cfg.d_model, dtype)
     tree["blocks"] = []
     for rep, kinds in cfg.blocks():
@@ -243,8 +249,7 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int,
     k/v leaves (repeat, batch, slots, Hkv, Dh), with slots = max_len for
     global layers and min(window, max_len) for local ones; MLA's ckv / kpe
     leaves (repeat, batch, max_len, kv_lora | rope_dim); an SSM layer's
-    state (``_kind_cache``)."""
-    check_ported(cfg)
+    state (``_kind_cache``); ``{}`` for a cross layer."""
     dev = resolve_device(device)
     blocks = []
     for rep, kinds in cfg.blocks():
@@ -263,7 +268,8 @@ def _kind_cache(cfg: ArchConfig, kind: str, batch: int, max_len: int,
     token-shift rows xprev / cm_xprev (batch, D); hymba's attention cache
     (a ring of min(window, max_len) slots) beside Mamba's state h
     (batch, d_inner, n_state) and its last conv inputs (batch, conv_k - 1,
-    d_inner)."""
+    d_inner). A cross layer has none: ``{}`` (its K and V are recomputed
+    from the encoder states)."""
     f32 = dict(dtype=torch.float32, device=dev)
     if kind == "rwkv":
         H, N = cfg.n_heads, cfg.rwkv_cfg().head_dim
@@ -277,12 +283,14 @@ def _kind_cache(cfg: ArchConfig, kind: str, batch: int, max_len: int,
                 "h": torch.zeros((batch, mc.d_inner, mc.n_state), **f32),
                 "conv": torch.zeros((batch, mc.conv_k - 1, mc.d_inner),
                                     **f32)}
+    if kind == "cross":
+        return {}
     return A.init_cache(cfg.attn_cfg(kind), batch, max_len, dtype, dev)
 
 
 def map_leaves(fn, *trees):
     """``fn`` over the tensor leaves of same-shaped trees of dicts and
-    lists."""
+    lists (an empty dict, a cross layer's cache, maps to itself)."""
     t0 = trees[0]
     if isinstance(t0, dict):
         return {k: map_leaves(fn, *(t[k] for t in trees)) for k in t0}
@@ -326,10 +334,11 @@ def _rmsnorm_columns(params, x):
 
 
 def _layer(params, x, kind: str, cfg: ArchConfig, *, cache, pos, qat,
-           columns=False):
-    """One layer -> (x, aux). ``columns`` is :func:`verify_step`'s: the
-    norms, MLA attention and a mixture-of-experts layer run once per
-    sequence column."""
+           enc=None, columns=False):
+    """One layer -> (x, aux). ``enc`` (the projected encoder states) goes
+    to a cross layer only, whose empty cache is passed on as none.
+    ``columns`` is :func:`verify_step`'s: the norms, MLA attention and a
+    mixture-of-experts layer run once per sequence column."""
     if kind == "rwkv":
         return _rwkv_layer(params, x, cfg, cache=cache, qat=qat)
     if kind == "hymba":
@@ -343,8 +352,9 @@ def _layer(params, x, kind: str, cfg: ArchConfig, *, cache, pos, qat,
                                 qat=qat)[0] for j in range(h.shape[1])],
                        dim=1)
     else:
-        ao, _ = A.apply(params["attn"], h, acfg, cfg.quant, cache=cache,
-                        pos=pos, qat=qat)
+        ao, _ = A.apply(params["attn"], h, acfg, cfg.quant,
+                        cache=cache or None, pos=pos,
+                        enc=enc if kind == "cross" else None, qat=qat)
     x = x + ao
     h2 = norm(params["ln2"], x)
     if "moe" not in params:
@@ -411,17 +421,27 @@ def _zero(x):
 
 
 def backbone(params, x, cfg: ArchConfig, *, caches=None, pos=None,
-             qat: bool = False, training: bool = False,
+             enc=None, qat: bool = False, training: bool = False,
              columns: bool = False):
     """x: (B,S,D) embeddings -> (hidden, caches, aux). A Python loop over
     each group's stacked layers; the caches are written in place; ``aux``
     sums the mixture-of-experts layers' load-balancing losses (0 without
-    them). ``qat`` runs every projection as fake-quant; ``training`` with
-    ``cfg.remat`` recomputes each layer in the backward instead of keeping
-    its activations (the reference's ``jax.checkpoint``). ``columns`` is
+    them). ``enc`` (B, Se, enc_dim), the encoder states a config with
+    cross-attention layers needs (``ValueError`` without them), is
+    projected by ``enc_proj`` once, a float product in the promoted dtype
+    of the two (the reference's einsum; no quantization). ``qat`` runs
+    every projection as fake-quant; ``training`` with ``cfg.remat``
+    recomputes each layer in the backward instead of keeping its
+    activations (the reference's ``jax.checkpoint``). ``columns`` is
     :func:`verify_step`'s: the norms, MLA attention and the experts run
     per column."""
-    check_ported(cfg)
+    if cfg.cross_every:
+        if enc is None:
+            raise ValueError(f"{cfg.name} has cross-attention layers: pass "
+                             "its encoder states (enc=)")
+        w = params["enc_proj"]["w"]
+        enc = torch.matmul(enc.to(torch.float32), w.to(torch.float32)).to(
+            torch.promote_types(enc.dtype, w.dtype))
     remat = cfg.remat and training and caches is None
     aux = _zero(x)
     for bi, (rep, kinds) in enumerate(cfg.blocks()):
@@ -434,7 +454,8 @@ def backbone(params, x, cfg: ArchConfig, *, caches=None, pos=None,
                 c = (None if bcache is None else
                      map_leaves(lambda t: t[r], bcache[key]))
                 fn = functools.partial(_layer, kind=kind, cfg=cfg, cache=c,
-                                       pos=pos, qat=qat, columns=columns)
+                                       pos=pos, qat=qat, enc=enc,
+                                       columns=columns)
                 x, a = (checkpoint(fn, lp[key], x, use_reentrant=False)
                         if remat else fn(lp[key], x))
                 aux = aux + a
@@ -443,6 +464,10 @@ def backbone(params, x, cfg: ArchConfig, *, caches=None, pos=None,
 
 
 def embed_tokens(params, tokens, cfg: ArchConfig):
+    """Token ids -> embeddings; stub embeddings (B, S, D) pass through
+    unchanged."""
+    if cfg.embed_stub:
+        return tokens
     x = L.embed(params["embed"], tokens)
     return x.to(torch.bfloat16) if cfg.param_dtype == torch.bfloat16 else x
 
@@ -450,7 +475,12 @@ def embed_tokens(params, tokens, cfg: ArchConfig):
 def lm_logits(params, hidden, cfg: ArchConfig, *, qat: bool = False):
     """Final projection to the vocab, through the backend registry for a
     quantized config (the widest matmul of the stack); under ``qat`` a
-    float matmul over the fake-quantized table (``layers.logits``)."""
+    float matmul over the fake-quantized table (``layers.logits``). With
+    ``n_codebooks`` > 1: (B, S, C, V) float32 logits of a float einsum over
+    the (C, V, D) table, whatever the backend, as in the reference."""
+    if cfg.n_codebooks > 1:
+        return torch.einsum("bsd,cvd->bscv", hidden.to(torch.float32),
+                            params["lm_head"]["table"].to(torch.float32))
     table = (params["lm_head"]["table"] if "lm_head" in params
              else params["embed"]["table"])
     return L.logits({"table": table}, hidden, true_vocab=cfg.vocab,
@@ -459,17 +489,26 @@ def lm_logits(params, hidden, cfg: ArchConfig, *, qat: bool = False):
 
 def forward_loss(params, batch, cfg: ArchConfig, *, qat: bool = False,
                  training: bool = True):
-    """batch: {tokens, labels} -> scalar mean cross-entropy, plus the
-    mixture-of-experts layers' load-balancing loss."""
-    x = embed_tokens(params, batch["tokens"], cfg)
-    h, _, aux = backbone(params, x, cfg, qat=qat, training=training)
+    """batch: {tokens | embeds, labels[, enc]} -> scalar mean cross-entropy,
+    plus the mixture-of-experts layers' load-balancing loss. With
+    ``n_codebooks`` > 1 the labels are (B, S, C), one per codebook, and the
+    loss is the mean over every (token, codebook)."""
+    x = embed_tokens(params, batch.get("tokens", batch.get("embeds")), cfg)
+    h, _, aux = backbone(params, x, cfg, enc=batch.get("enc"), qat=qat,
+                         training=training)
     lg = lm_logits(params, h, cfg, qat=qat)
-    return L.softmax_cross_entropy(lg, batch["labels"], cfg.vocab) + aux
+    labels = batch["labels"]
+    if cfg.n_codebooks > 1:
+        lg, labels = lg.reshape(-1, lg.shape[-1]), labels.reshape(-1)
+    return L.softmax_cross_entropy(lg, labels, cfg.vocab) + aux
 
 
-def prefill(params, tokens, cfg: ArchConfig, caches, lengths=None,
-            pos_offset=None):
+def prefill(params, tokens, cfg: ArchConfig, caches, enc=None,
+            lengths=None, pos_offset=None):
     """Batched prefill -> (next-token logits (B, 1, V), caches).
+
+    tokens: (B, S) ids, or (B, S, D) stub embeddings; enc: the encoder
+    states of a cross-attention config (``backbone``).
 
     lengths: optional (B,) true prompt lengths for a right-padded batch —
     logits are gathered at each row's last real token (the padded tail's
@@ -487,7 +526,8 @@ def prefill(params, tokens, cfg: ArchConfig, caches, lengths=None,
     included), as in the reference.
     """
     x = embed_tokens(params, tokens, cfg)
-    h, caches, _ = backbone(params, x, cfg, caches=caches, pos=pos_offset)
+    h, caches, _ = backbone(params, x, cfg, caches=caches, pos=pos_offset,
+                            enc=enc)
     if lengths is not None:
         idx = torch.as_tensor(lengths, dtype=torch.int64,
                               device=h.device) - 1
@@ -497,12 +537,14 @@ def prefill(params, tokens, cfg: ArchConfig, caches, lengths=None,
     return lm_logits(params, h, cfg), caches
 
 
-def decode_step(params, token, pos, cfg: ArchConfig, caches):
-    """token: (B,1) ids; pos: a scalar for uniform batch-synchronous
-    decode, or a (B,) vector giving each cache row its own absolute
-    position (per-slot continuous batching)."""
+def decode_step(params, token, pos, cfg: ArchConfig, caches, enc=None):
+    """token: (B,1) ids or (B,1,D) stub embeddings; pos: a scalar for
+    uniform batch-synchronous decode, or a (B,) vector giving each cache
+    row its own absolute position (per-slot continuous batching); enc: the
+    encoder states of a cross-attention config, whose K and V the cross
+    layers recompute on every step."""
     x = embed_tokens(params, token, cfg)
-    h, caches, _ = backbone(params, x, cfg, caches=caches, pos=pos)
+    h, caches, _ = backbone(params, x, cfg, caches=caches, pos=pos, enc=enc)
     return lm_logits(params, h, cfg), caches
 
 
@@ -540,7 +582,7 @@ def require_position_indexed(cfg: ArchConfig) -> None:
             f"positions ({cfg.name})")
 
 
-def verify_step(params, window, pos, cfg: ArchConfig, caches):
+def verify_step(params, window, pos, cfg: ArchConfig, caches, enc=None):
     """One speculative verify pass: a (B, K) token window per cache row.
 
     ``window[b]`` holds the row's committed next-input token followed by
@@ -574,7 +616,7 @@ def verify_step(params, window, pos, cfg: ArchConfig, caches):
     instead.)"""
     require_position_indexed(cfg)
     x = embed_tokens(params, window, cfg)
-    h, caches, _ = backbone(params, x, cfg, caches=caches, pos=pos,
+    h, caches, _ = backbone(params, x, cfg, caches=caches, pos=pos, enc=enc,
                             columns=True)
     return lm_logits(params, h, cfg), caches
 

@@ -1,6 +1,6 @@
 """Attention: grouped-query attention with RoPE (global causal or a
-sliding window) and deepseek-v2's MLA, after the JAX package's
-``repro.nn.attention``.
+sliding window), cross-attention over encoder states (llama-3.2-vision)
+and deepseek-v2's MLA, after the JAX package's ``repro.nn.attention``.
 
 Cache conventions (per layer; stacked over the layers of a group by the
 model):
@@ -13,6 +13,8 @@ model):
                      position-indexed, and only the mask is windowed.)
   MLA              : the compressed c_kv (B, S_max, kv_lora) and k_pe
                      (B, S_max, rope_dim), position-indexed.
+  cross            : none; K and V are projected from the encoder states
+                     on every call, as in the reference.
 ``apply`` writes the cache in place (the JAX package returns an updated
 copy) and returns it.
 
@@ -28,9 +30,6 @@ formulation (scores in the compressed space); its ``wq`` / ``wdkv`` /
 A ring holds at most W positions, so a prefill longer than the ring
 raises ``ValueError``: the reference's scatter of such a prompt writes one
 slot twice in one update, and XLA defines no order for that.
-
-Not ported yet (raises ``NotImplementedError`` naming its ROADMAP item):
-cross-attention (llama-3.2 vision).
 """
 from __future__ import annotations
 
@@ -44,11 +43,6 @@ from repro_torch.quant.quantize import QuantConfig
 
 NEG = -2.0 ** 30
 KV_CHUNK = 1024
-
-NOT_PORTED = {
-    "cross": "cross-attention (llama-3.2-vision) is not ported yet: "
-             "ROADMAP.md queue A, item 19",
-}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -71,12 +65,6 @@ class AttnConfig:
     @property
     def is_mla(self) -> bool:
         return self.kv_lora > 0
-
-
-def check_ported(cfg: AttnConfig) -> None:
-    """Raise for the attention variants this port does not run yet."""
-    if cfg.cross:
-        raise NotImplementedError(NOT_PORTED["cross"])
 
 
 # ---------------------------------------------------------------------------
@@ -120,7 +108,6 @@ def q_positions(pos, b: int, s: int, device) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def attn_desc(cfg: AttnConfig, dtype=torch.float32):
-    check_ported(cfg)
     D = cfg.d_model
     if cfg.is_mla:
         qd = cfg.n_heads * (cfg.qk_nope + cfg.qk_rope)
@@ -152,7 +139,6 @@ def attn_desc(cfg: AttnConfig, dtype=torch.float32):
 
 def init_cache(cfg: AttnConfig, batch: int, max_len: int,
                dtype=torch.bfloat16, device="cpu"):
-    check_ported(cfg)
     if cfg.is_mla:
         return {"ckv": torch.zeros((batch, max_len, cfg.kv_lora),
                                    dtype=dtype, device=device),
@@ -174,8 +160,8 @@ def is_ring(cfg: AttnConfig, slots: int) -> bool:
 # Core attention math
 # ---------------------------------------------------------------------------
 
-def _sdpa(q, k, v, q_pos, k_pos, window: int, kv_chunk: int = KV_CHUNK,
-          p_bf16: bool = False) -> torch.Tensor:
+def _sdpa(q, k, v, q_pos, k_pos, window: int, causal: bool = True,
+          kv_chunk: int = KV_CHUNK, p_bf16: bool = False) -> torch.Tensor:
     """Blockwise (flash-style) attention: online softmax over KV chunks, so
     that no (Sq, Sk) score tensor over the whole cache is kept; chunk masks
     are rebuilt from absolute positions.
@@ -183,7 +169,9 @@ def _sdpa(q, k, v, q_pos, k_pos, window: int, kv_chunk: int = KV_CHUNK,
     q: (B,Sq,H,D) k/v: (B,Sk,Hkv,D[v]); q_pos (Sq,)/(B,Sq) and k_pos
     (Sk,)/(B,Sk) with -1 marking invalid slots — a full (B, S) position
     matrix means every batch row masks against its own absolute positions
-    (per-slot continuous batching). Causal; float32 accumulation.
+    (per-slot continuous batching). Causal unless ``causal`` is False
+    (cross-attention: only the invalid slots are masked); float32
+    accumulation.
     """
     b, sq, h, d = q.shape
     hkv = k.shape[2]
@@ -214,9 +202,11 @@ def _sdpa(q, k, v, q_pos, k_pos, window: int, kv_chunk: int = KV_CHUNK,
         vj = v[:, j * c:(j + 1) * c]
         kpj = k_pos[:, j * c:(j + 1) * c]             # (B, c)
         dist = qp[:, :, None] - kpj[:, None, :]       # (B, Sq, c)
-        mj = (kpj[:, None, :] >= 0) & (dist >= 0)     # causal
-        if window:
-            mj = mj & (dist < window)
+        mj = kpj[:, None, :] >= 0
+        if causal:
+            mj = mj & (dist >= 0)
+            if window:
+                mj = mj & (dist < window)
         s = torch.einsum("bqhgd,bkhd->bhgqk", qh, kj.to(torch.float32))
         s = torch.where(mj[:, None, None], s, NEG)
         m_new = torch.maximum(m, s.amax(dim=-1))
@@ -237,7 +227,7 @@ def _b(params, name):
 
 
 def apply(params, x: torch.Tensor, cfg: AttnConfig, quant: QuantConfig, *,
-          cache=None, pos=None, qat: bool = False):
+          cache=None, pos=None, enc=None, qat: bool = False):
     """Returns (out, cache).
 
     Modes:
@@ -248,24 +238,36 @@ def apply(params, x: torch.Tensor, cfg: AttnConfig, quant: QuantConfig, *,
                 batch-synchronous decode, or a (B,) vector for per-slot
                 positions (continuous batching: each row of the cache pool
                 is at its own depth; writes and masks are per row).
+      cross   : ``cfg.cross``; enc (B, Se, D), the projected encoder
+                states, gives K and V through the quantized projections;
+                no RoPE, every query at position 0 and the keys at
+                0..Se-1, no causal mask (the last KV chunk's padding is
+                masked); no cache: ``cache`` is returned as given.
     A position-indexed cache is written in place at the queries' absolute
     positions, and positions past each row's last written one are masked
     (k_pos = -1). A ring is written at slot = pos % W, and each slot's
     absolute position is rebuilt from the row's last query position.
     ``qat`` runs every projection as fake-quant (``layers.dense``).
     """
-    check_ported(cfg)
     if cfg.is_mla:
         return _apply_mla(params, x, cfg, quant, cache=cache, pos=pos,
                           qat=qat)
     b, s, _ = x.shape
     dh = cfg.head_dim
+    kv_src = enc if cfg.cross else x
     q = L.dense({"w": params["wq"], **_b(params, "bq")}, x, quant, qat)
-    k = L.dense({"w": params["wk"], **_b(params, "bk")}, x, quant, qat)
-    v = L.dense({"w": params["wv"], **_b(params, "bv")}, x, quant, qat)
+    k = L.dense({"w": params["wk"], **_b(params, "bk")}, kv_src, quant, qat)
+    v = L.dense({"w": params["wv"], **_b(params, "bv")}, kv_src, quant, qat)
     q = q.reshape(b, s, cfg.n_heads, dh)
-    k = k.reshape(b, s, cfg.n_kv_heads, dh)
-    v = v.reshape(b, s, cfg.n_kv_heads, dh)
+    k = k.reshape(b, kv_src.shape[1], cfg.n_kv_heads, dh)
+    v = v.reshape(b, kv_src.shape[1], cfg.n_kv_heads, dh)
+
+    if cfg.cross:
+        enc_pos = torch.arange(kv_src.shape[1], device=x.device)[None, :]
+        q_zero = torch.zeros((b, s), dtype=torch.int64, device=x.device)
+        out = _sdpa(q, k, v, q_zero, enc_pos, 0, causal=False,
+                    p_bf16=cfg.p_bf16)
+        return L.dense({"w": params["wo"]}, out, quant, qat), cache
 
     q_pos = q_positions(pos, b, s, x.device)         # (B, s) absolute
     q = rope(q, q_pos, cfg.rope_theta)

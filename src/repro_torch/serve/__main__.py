@@ -13,7 +13,10 @@ model is full-width smollm-135m by default (``--arch``), with random
 weights from ``--seed``; ``--reduced`` serves the example's 4-layer,
 128-wide config instead; a windowed arch's prompts are drawn no longer
 than its ring (hymba's reduced window is 8). It runs on the card unless
-``--device cpu``.
+``--device cpu``. The engine serves token models only:
+``--arch llama-3.2-vision-11b`` (cross-attention) and ``--arch
+musicgen-large`` (stub embeddings) exit with its ``ValueError`` before any
+weight is drawn.
 """
 from __future__ import annotations
 
@@ -28,6 +31,7 @@ from repro_torch.models import transformer_lm as TLM
 from repro_torch.quant.matmul import list_backends
 from repro_torch.quant.quantize import for_lm
 from repro_torch.serve import Engine, SamplingConfig, ServeRequest
+from repro_torch.serve.engine import check_servable
 
 
 def parse_args(argv=None):
@@ -67,6 +71,7 @@ def main(argv=None) -> dict:
         cfg = registry.reduced(args.arch, n_layers=4, d_model=128, d_ff=256)
     else:
         cfg = registry.get(args.arch)
+    check_servable(cfg)
     cfg = dataclasses.replace(cfg, quant=for_lm(args.backend))
     params = TLM.init(cfg, torch.Generator().manual_seed(args.seed),
                       device=args.device)

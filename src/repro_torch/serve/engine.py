@@ -43,7 +43,10 @@ served are those of sequential decode.
 
 There is no counterpart of the reference's ``compiled_fns`` (its jitted
 prefill/decode cache): PyTorch runs eagerly. ``mesh=`` (the sharded engine)
-is a later slice of the port and raises ``NotImplementedError``.
+is a later slice of the port and raises ``NotImplementedError``. The
+engine serves token models without encoder inputs, as the reference's
+does: a config with stub embeddings or cross-attention layers raises
+``ValueError`` (``check_servable``).
 """
 from __future__ import annotations
 
@@ -93,6 +96,23 @@ def padded_prefill_ok(cfg: ArchConfig) -> bool:
     return TLM.position_indexed(cfg)
 
 
+def check_servable(cfg: ArchConfig) -> None:
+    """Refuse the configs the engine cannot serve, as the reference's
+    cannot: stub embeddings (musicgen; its ``Engine`` asserts that it
+    drives token models) and cross-attention layers (llama-3.2-vision; it
+    passes no encoder states to prefill and decode, so its first cross
+    layer fails). ``train.steps.make_serve_step`` decodes both, with the
+    encoder states or frame embeddings given by its caller."""
+    if cfg.embed_stub:
+        raise ValueError(
+            f"{cfg.name} takes stub embeddings (embed_stub): the serving "
+            "engine drives token models only")
+    if cfg.cross_every:
+        raise ValueError(
+            f"{cfg.name} has cross-attention layers: the serving engine "
+            "passes no encoder states to them")
+
+
 class Engine:
     """Single-device continuous-batching server for token LMs.
 
@@ -107,6 +127,7 @@ class Engine:
                  prefix_caching: bool = True, page_size: int = 8,
                  cache_pages: Optional[int] = None,
                  mesh=None, spec=None, draft_params=None, device="cuda"):
+        check_servable(cfg)
         if mesh is not None:
             raise NotImplementedError(
                 "Engine(mesh=...) — the sharded engine — is not ported yet: "

@@ -22,10 +22,13 @@ def make_train_step(cfg: ArchConfig, opt_cfg: adamw.AdamWConfig,
                     num_microbatches: int = 1, qat: bool = False):
     """(params, opt_state, batch) -> (params, opt_state, {"loss": loss}).
 
-    ``batch`` is ``{"tokens", "labels"}`` of (B, S) tensors. With
-    ``num_microbatches`` > 1 the batch is split along B, the gradients are
-    summed in float32 and averaged, as the reference's scan does at its
-    default ``accum_dtype``."""
+    ``batch`` holds ``tokens`` (B, S) ids, or ``embeds`` (B, S, D) stub
+    embeddings, and ``labels``: (B, S), or (B, S, C) with ``n_codebooks``
+    = C > 1; and ``enc`` (B, Se, enc_dim), the encoder states, for a
+    config with cross-attention layers. With ``num_microbatches`` > 1
+    every key is split along B, the gradients are summed in float32 and
+    averaged, as the reference's scan does at its default
+    ``accum_dtype``."""
 
     def loss_fn(params, batch):
         return TLM.forward_loss(params, batch, cfg, qat=qat, training=True)
@@ -59,11 +62,16 @@ def make_train_step(cfg: ArchConfig, opt_cfg: adamw.AdamWConfig,
 
 
 def make_serve_step(cfg: ArchConfig):
-    """(params, caches, token, pos) -> (next_token (B, 1) int32, caches):
-    one greedy decode step over a batch of requests."""
+    """(params, caches, token, pos, enc=None) -> (next token, caches): one
+    greedy decode step over a batch of requests. ``token`` is (B, 1) ids or
+    (B, 1, D) stub embeddings; ``enc`` the encoder states of a
+    cross-attention config. The next token is (B, 1) int32, or (B, C), one
+    code per codebook, with ``n_codebooks`` = C > 1."""
 
-    def serve_step(params, caches, token, pos):
-        logits, caches = TLM.decode_step(params, token, pos, cfg, caches)
-        return torch.argmax(logits[:, -1:], dim=-1).to(torch.int32), caches
+    def serve_step(params, caches, token, pos, enc=None):
+        logits, caches = TLM.decode_step(params, token, pos, cfg, caches,
+                                         enc=enc)
+        last = logits[:, -1] if cfg.n_codebooks > 1 else logits[:, -1:]
+        return torch.argmax(last, dim=-1).to(torch.int32), caches
 
     return serve_step
