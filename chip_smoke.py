@@ -104,8 +104,7 @@ Phases, each printing its seconds:
             backend, a fixed-shape decode step of the 4-slot pool timed
             over 20 calls (median and quartiles) and one profiled call's
             busy ms, port-kernel ms and idle share; the rank1 operand
-            build at the head. Then ``python -m
-            repro_torch.serve --backend approx_deficit_pallas`` runs once;
+            build at the head;
 8. spec     the same workload served again with speculative decoding
             (SpecConfig(k=4, draft_backend="approx_stage1_pallas"), which
             is bitwise the approx_stage1 draft the serve suite names)
@@ -176,9 +175,9 @@ Phases, each printing its seconds:
             (params, bf16 m, int8 v codes, v scales, the step count)
             equals the host copy that was saved, bit for bit; the loss is
             finite and falls; ms per step, the seconds and bytes of one
-            save and one restore; then ``python -m
-            repro_torch.examples.lm_train --model-scale 100m --crash
-            --steps 1`` runs once in a subprocess and exits 0. (b)
+            save and one restore (the example, ``python -m
+            repro_torch.examples.lm_train --model-scale 100m --crash``,
+            runs in phase 14). (b)
             smollm-135m whole, gemma3-27b at depth 6 (one 5:1 group, 3.9 B
             parameters), deepseek-v2-236b at depth 1 (5.1 B), rwkv6-3b
             and hymba-1.5b whole, at their published widths (bf16 from
@@ -217,18 +216,40 @@ Phases, each printing its seconds:
             depth 5, 1.6 B parameters; musicgen whole; batches of 8 x 64
             with 8 x 1,601 encoder states, or frame embeddings with
             8 x 64 x 4 codebook labels);
-14. launch counts, set to 0 before each of phases 4, 5 and 6 (the suite
+14. examples  quickstart (ER=6.940%, identity OK), serve_lm under
+            approx_deficit_pallas and again with --spec-k 4 and the
+            approx_stage1_pallas draft (the same tokens), ``python -m
+            repro_torch.serve --backend approx_deficit_pallas`` at
+            smollm-135m's published width, denoise and mnist_train at
+            their smoke budgets, and lm_train at --model-scale 100m with
+            --crash --steps 1 (it resumes from its own checkpoint), on
+            the card, each in its own process and all at once; a nonzero
+            exit fails the phase. Beside them, after the last timed phase,
+            ``python -m repro_torch.launch.dryrun --shape decode_32k``
+            counts on the host;
+15. launch  that dry-run (the shape's cell of each of the 10 archs;
+            ``--all``, the 34 cells, takes minutes of host time, and its
+            records are committed under ``experiments/torch/dryrun/``):
+            exit 0 and one record of FLOPs, bytes, state and
+            fits_one_card per cell, one line each. Every timed LM step of
+            phases 7, 9-13 also prints its step-level bound
+            (``step_bound``: the dry-run's ``step_cost`` at the step's
+            config, rows and positions, a mixture-of-experts layer's
+            experts at the rows routed to them) and the measured ms over
+            it;
+16. launch counts, set to 0 before each of phases 4, 5 and 6 (the suite
    runners' calls), 7 (the served runs), 8 (the speculative runs), the
-   served runs of 9, 10, 11 and 13 and the STE steps of 12 and 13, and
-   read after it: LeNet-5 and FFDNet each launch every entry but
-   fused_matmul[exact], the suites, spec, train, xattn and the ring,
-   deepseek and ssm paths every fused entry, the serve path K2[deficit],
-   K2[stage1], K4 and (unfused) K1[stage1], full-depth gemma3
-   K2[deficit];
-15. one JSON line each ``{"suites": {...}}``, ``{"serve": {...}}``,
+   served runs of 9, 10, 11 and 13, the STE steps of 12 and 13 and the
+   examples' processes (each reports its own), and read after it:
+   LeNet-5 and FFDNet each launch every entry but fused_matmul[exact],
+   the suites, spec, train, xattn, examples and the ring, deepseek and
+   ssm paths every fused entry, the serve path K2[deficit], K2[stage1],
+   K4 and (unfused) K1[stage1], full-depth gemma3 K2[deficit];
+17. one JSON line each ``{"suites": {...}}``, ``{"serve": {...}}``,
    ``{"spec": {...}}``, ``{"gemma": {...}}``,
    ``{"deepseek": {...}}``, ``{"ssm": {...}}``, ``{"train": {...}}``,
-   ``{"xattn": {...}}`` and ``{"kernels": [...]}``;
+   ``{"xattn": {...}}``, ``{"examples": {...}}``, ``{"launch": {...}}``
+   and ``{"kernels": [...]}``;
 then the ``nvidia-smi`` name and power limit, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure raises: the script exits
 non-zero and prints no result. It imports nothing of JAX.
@@ -241,6 +262,7 @@ import functools
 import json
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -256,20 +278,6 @@ EVAL_OUT = ROOT / "build" / "torch_eval"
 COMMITTED_EVAL = ROOT / "experiments" / "eval"
 CUDA_CORE_SOURCE = "src/repro_torch/kernels/csrc/approx_matmul.cu"
 TC_SOURCE = "src/repro_torch/kernels/csrc/tc_matmul.cu"
-
-# Published H100 SXM rates, at the 700 W limit (NVIDIA data sheet): device
-# memory, int8 tensor cores. The data sheet gives no rate for 32-bit
-# integer work on the CUDA cores. Each SM has 64
-# INT32 lanes, but IMAD issues on the FP32 pipe, so integer work is capped
-# only by issue: 4 schedulers x 32 lanes per clock per SM. 132 SMs x 128
-# lanes x 1.98 GHz (the boost clock behind the data sheet's 67 TFLOP/s
-# float32) = 33.5 T operations/s, which keeps the bound a lower bound.
-HBM_BYTES_PER_S = 3.35e12
-INT8_TC_OPS_PER_S = 1979e12
-INT_ISSUE_OPS_PER_S = 132 * 128 * 1.98e9
-# Shared memory answers 32 lanes (one 4-byte bank each) per clock per SM:
-# at most one table lookup per lane per clock, at the same clock.
-LDS_LOOKUPS_PER_S = 132 * 32 * 1.98e9
 
 # Logits of the two stacks agree within this share of their range: the
 # int8 codes and int32 accumulators are bitwise equal, the float32 pools
@@ -325,12 +333,14 @@ SERVE_VARIANTS = SUITE_VARIANTS + [("approx_matmul", "stage1")]
 # gemma3 path serves bf16 and approx_deficit_pallas only
 ARCH_VARIANTS = SUITE_VARIANTS
 # the train path's STE steps (qat off): K2 under deficit and stage1 and K4,
-# the fused per-token routes
+# the fused per-token routes; the examples' processes (serve_lm's and the
+# serve CLI's deficit and stage1 draft, the denoise and mnist sweeps) K2
+# and K4
 PATH_NEEDS = {"suites": SUITE_VARIANTS, "serve": SERVE_VARIANTS,
               "spec": SUITE_VARIANTS, "gemma": [("fused_matmul", "deficit")],
               "gemma_ring": ARCH_VARIANTS, "deepseek": ARCH_VARIANTS,
               "ssm": ARCH_VARIANTS, "train": ARCH_VARIANTS,
-              "xattn": ARCH_VARIANTS}
+              "xattn": ARCH_VARIANTS, "examples": SUITE_VARIANTS}
 
 LENET_LAYERS = {  # (B, M, K, N) of each quantized matmul at batch 50
     "lenet5.c1": (50, 784, 25, 6), "lenet5.c2": (50, 196, 150, 16),
@@ -546,6 +556,11 @@ def main() -> int:
     with Phase("xattn"):
         lines["xattn"], paths["xattn"] = xattn_phase(torch, detail, "cuda",
                                                      full=True, ops=ops)
+    torch.cuda.empty_cache()
+    with Phase("examples"):
+        lines["examples"], paths["examples"], dry = examples_phase(torch, K)
+    with Phase("launch"):
+        lines["launch"], detail["launch"] = launch_phase(dry)
 
     with Phase("launches"):
         for name, var, _ in ROWS:
@@ -706,18 +721,20 @@ def _bound(name, variant, rows, k, n, fac, ops) -> tuple:
     (``operands_ms``) and their stream given as ``_planes_ms``. The
     CUDA-core bodies count their SASS per pair: the integer instructions
     over the issue rate, or the table lookups over shared memory's lookup
-    rate, whichever takes longer."""
+    rate, whichever takes longer. The card's rates are the data sheet's
+    (``repro_torch.launch.mesh``)."""
+    from repro_torch.launch import mesh as MESH
     fused = name in ("fused_matmul", "rank1_fused_matmul")
     nbytes = rows * k + k * n + rows * n * 4 + (2 * n * 4 if fused else 0)
     macs = rows * k * n
     if variant == "exact":
-        t_ops = 2 * macs / INT8_TC_OPS_PER_S
+        t_ops = 2 * macs / MESH.INT8_TC_OPS_PER_S
     elif variant == "rank1":
-        t_ops = 2 * macs * (1 + fac.R * fac.n_digits) / INT8_TC_OPS_PER_S
+        t_ops = 2 * macs * (1 + fac.R * fac.n_digits) / MESH.INT8_TC_OPS_PER_S
     else:
-        t_ops = macs * max(ops[variant]["alu"] / INT_ISSUE_OPS_PER_S,
-                           ops[variant]["lookups"] / LDS_LOOKUPS_PER_S)
-    t_bytes = nbytes / HBM_BYTES_PER_S
+        t_ops = macs * max(ops[variant]["alu"] / MESH.INT_ISSUE_OPS_PER_S,
+                           ops[variant]["lookups"] / MESH.LDS_LOOKUPS_PER_S)
+    t_bytes = nbytes / MESH.HBM_BYTES_PER_S
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
 
@@ -726,7 +743,8 @@ def _planes_ms(k, n, fac) -> float:
     """Milliseconds to stream RANK1's weight planes (nd * K * R * N int8)
     once from memory: what the wrapper's choice of operand adds on top of
     the function's bound."""
-    return fac.n_digits * k * fac.R * n / HBM_BYTES_PER_S * 1e3
+    from repro_torch.launch import mesh as MESH
+    return fac.n_digits * k * fac.R * n / MESH.HBM_BYTES_PER_S * 1e3
 
 
 def sass_ops_per_pair(K, sass) -> dict:
@@ -1688,6 +1706,7 @@ PROJECTIONS_PER_LAYER = 7   # q, k, v, o, gate, up, down
 SERVE_REPS = 2           # the workload served this many times per backend
 SERVE_DEPTH = 8          # smollm-135m's layers served in phases 7-8 (of 30)
 STEP_REPS = 20           # timed calls of a fixed-shape decode step
+STEP_COSTS: dict = {}    # step_bound's counts, by config, kind and shape
 
 
 def serve_workload(vocab: int, smoke: bool, seed: int):
@@ -1746,52 +1765,57 @@ class ServeRecorder:
         return False
 
 
-def _serve_shapes(cfg) -> list:
-    """(K, N) of every projection launch of one forward, in order: the
-    attention's (GQA q, k, v, o; MLA wq, wdkv, wo), the dense MLP's (gate,
-    up, down; a mixture-of-experts layer's products are float), and the
-    head; RWKV6's time mix (r, k, v, g, o) and channel mix (k, v, r);
-    hymba's attention, Mamba (in, x, out) and MLP. A cross layer's k and v
-    take the projected encoder states (d_model wide); a gelu MLP has up and
-    down; musicgen's codebook head is a float product (no launch)."""
-    d, f, kvd = cfg.d_model, cfg.d_ff, cfg.n_kv_heads * cfg.dh
-    qd = cfg.n_heads * cfg.dh
-    if cfg.ssm == "rwkv6":
-        layer = [(d, d)] * 5 + [(d, f), (f, d), (d, d)]
-        return layer * cfg.n_layers + [(d, cfg.padded_vocab)]
-    if cfg.ssm == "hymba":
-        mc = cfg.mamba_cfg()
-        layer = [(d, qd), (d, kvd), (d, kvd), (qd, d),
-                 (d, 2 * mc.d_inner),
-                 (mc.d_inner, mc.dt_rank + 2 * mc.n_state), (mc.d_inner, d),
-                 (d, f), (d, f), (f, d)]
-        return layer * cfg.n_layers + [(d, cfg.padded_vocab)]
-    if cfg.kv_lora:
-        layer = [(d, cfg.n_heads * (cfg.qk_nope + cfg.qk_rope)),
-                 (d, cfg.kv_lora + cfg.qk_rope),
-                 (cfg.n_heads * cfg.v_head_dim, d)]
-    else:
-        layer = [(d, qd), (d, kvd), (d, kvd), (qd, d)]
-    if not cfg.n_experts:
-        layer += ([(d, f), (d, f), (f, d)] if cfg.mlp_act in ("swiglu",
-                                                              "geglu")
-                  else [(d, f), (f, d)])
-    head = [] if cfg.n_codebooks > 1 else [(d, cfg.padded_vocab)]
-    return layer * cfg.n_layers + head
-
-
 def _step_launches(K, cfg, variant: str) -> int:
     """Kernel launches of one decode step under ``variant``."""
+    from repro_torch.launch.dryrun import projection_shapes
     return sum(_launches_per_call(K, variant, k, n)
-               for k, n in _serve_shapes(cfg))
+               for k, n in projection_shapes(cfg))
 
 
 def _serve_bound_ms(cfg, rows: int, variant: str, ops, fac) -> float:
     """Least time of one forward's kernel launches at ``rows`` rows each:
     the sum of each launch's bound (the launches run one after another)."""
+    from repro_torch.launch.dryrun import projection_shapes
     name = "rank1_fused_matmul" if variant == "rank1" else "fused_matmul"
     return sum(_bound(name, variant, rows, k, n, fac, ops)[0]
-               for k, n in _serve_shapes(cfg))
+               for k, n in projection_shapes(cfg))
+
+
+def step_bound(detail, label: str, cfg, kind: str, rows: int, seq: int,
+               measured_ms: float, **kw) -> dict:
+    """The step-level yardstick of one timed step: ``launch.dryrun``'s
+    ``step_cost`` at the step's exact config, rows and positions (its
+    products counted on the host's meta device, its bytes from the cache
+    layout; a mixture-of-experts layer's experts at the rows routed to
+    them), its ``bound_ms`` against the data sheet's rates, and the
+    measured ms over that bound. The quantized backends run the same
+    products, so they share one count (``STEP_COSTS``). Printed, appended
+    to ``detail["step_bounds"]`` and returned."""
+    import dataclasses
+    from repro_torch.launch.dryrun import step_cost
+    from repro_torch.quant.quantize import BF16, for_lm
+    quantized = cfg.quant.is_quantized and not kw.get("qat")
+    key = (dataclasses.replace(cfg, quant=BF16), quantized, kind, rows, seq,
+           json.dumps(kw, sort_keys=True, default=str))
+    if key not in STEP_COSTS:
+        STEP_COSTS[key] = step_cost(dataclasses.replace(
+            cfg, quant=for_lm("approx_deficit_pallas") if quantized
+            else BF16), kind, rows, seq, **kw)
+    cost = STEP_COSTS[key]
+    row = {"label": label, "kind": kind, "rows": rows, "seq": seq,
+           **{k: cost[k] for k in ("flops", "flops_min", "flops_int8",
+                                   "bytes_min", "bound_ms", "bound_by",
+                                   "count_s")},
+           "measured_ms": measured_ms,
+           "measured_over_bound": measured_ms / cost["bound_ms"]}
+    detail.setdefault("step_bounds", []).append(row)
+    print(f"  step bound {label}: {row['flops']:.4e} FLOPs, "
+          f"{row['flops_min']:.4e} routed "
+          f"({row['flops_int8']:.4e} on int8 codes), bytes_min "
+          f"{row['bytes_min']:.4e}, bound {row['bound_ms']:.4f} ms "
+          f"({row['bound_by']}); measured {measured_ms:.3f} ms = "
+          f"{row['measured_over_bound']:.1f}x the bound", flush=True)
+    return row
 
 
 def serve_phase(torch, detail, dev: str, full: bool, ops=None) -> tuple:
@@ -1807,6 +1831,7 @@ def serve_phase(torch, detail, dev: str, full: bool, ops=None) -> tuple:
     from repro_torch.configs import registry
     from repro_torch.core import factor as F
     from repro_torch.kernels import approx_matmul as K
+    from repro_torch.launch import dryrun as DRY
     from repro_torch.models import transformer_lm as TLM
     from repro_torch.nn.module import n_params
     from repro_torch.quant import matmul as QM
@@ -1901,12 +1926,17 @@ def serve_phase(torch, detail, dev: str, full: bool, ops=None) -> tuple:
             row.update(prof)
             row["idle_share"] = 1 - prof["device_busy_ms"] / row[
                 "fixed_step_ms"]["median"]
+            row["step_cost"] = step_bound(
+                detail, f"smollm-135m L{cfg0.n_layers} {be}", cfg, "decode",
+                slots, max_len, row["fixed_step_ms"]["median"],
+                pos=[int(p) for p in pos], cache_dtype=_cache_dtype(eng))
             if be in CUDA_BACKENDS:
                 row["step_bound_ms"] = _serve_bound_ms(
                     cfg0, slots, SERVE_KERNEL[be], ops, fac)
                 if SERVE_KERNEL[be] == "rank1":
                     row["step_planes_ms"] = sum(
-                        _planes_ms(k, n, fac) for k, n in _serve_shapes(cfg0))
+                        _planes_ms(k, n, fac)
+                        for k, n in DRY.projection_shapes(cfg0))
                 K.reset_launch_counts()
                 step()
                 n = sum(getattr(K, name).launches for name in
@@ -1976,21 +2006,6 @@ def serve_phase(torch, detail, dev: str, full: bool, ops=None) -> tuple:
               f"{out['rank1_operand_build_ms_head']:.3f} ms")
         del runs
         torch.cuda.empty_cache()
-        t0 = time.perf_counter()
-        cli = subprocess.run(
-            [sys.executable, "-m", "repro_torch.serve", "--backend",
-             "approx_deficit_pallas"], cwd=ROOT, capture_output=True,
-            text=True, timeout=600,
-            env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
-        check(cli.returncode == 0, "python -m repro_torch.serve failed:\n"
-              + cli.stdout[-2000:] + cli.stderr[-4000:])
-        last = cli.stdout.strip().splitlines()
-        check(any("backend=approx_deficit_pallas" in ln for ln in last),
-              "python -m repro_torch.serve printed no summary")
-        out["cli_s"] = time.perf_counter() - t0
-        print(f"  python -m repro_torch.serve --backend "
-              f"approx_deficit_pallas ({out['cli_s']:.1f} s): {last[0]}; "
-              f"{last[-1]}")
     state = {"cfg": cfg0, "params": params, "reqs": reqs, "slots": slots,
              "max_len": max_len, "tokens": tokens,
              "ms_per_token": {be: statistics.median(
@@ -2309,17 +2324,17 @@ DSV2_SPEC = ("approx_deficit_pallas", 4, "approx_stage1_pallas")
 def ring_workload(vocab: int, full: bool, seed: int = 0):
     """Long prompts from the seeded ``token_stream`` whose decode wraps the
     local layers' rings: 4 requests into 2 slots (admission mid-decode),
-    prompts of 1,012-1,020 tokens, 14-20 new tokens each (every request
-    decodes past position 1,024), max_len 1,088 (so that the rings hold
-    the whole window of 1,024); the decode is kept short, since RANK1
-    takes about 1.5 s a step here. Without ``full``
+    prompts of 1,016-1,020 tokens, 10-14 new tokens each (every request
+    decodes to position 1,024 or past it, where the rings wrap), max_len
+    1,088 (so that the rings hold the whole window of 1,024); the decode
+    is kept short, since RANK1 takes about 1.5 s a step here. Without ``full``
     the same shape for the reduced gemma3's window of 8: prompts of 5-8
     tokens, 8-12 new, max_len 24. Returns (requests, slots, max_len)."""
     from repro_torch.data import synthetic
     rng = np.random.default_rng(seed + 13)
     n, slots = 4, 2
     if full:
-        (lo, hi), (nlo, nhi), max_len = (1012, 1021), (14, 21), 1088
+        (lo, hi), (nlo, nhi), max_len = (1016, 1021), (10, 15), 1088
     else:
         (lo, hi), (nlo, nhi), max_len = (5, 9), (8, 13), 24
     stream = synthetic.token_stream(n, hi, vocab, seed=seed)
@@ -2367,11 +2382,19 @@ def _serving_row(rec, stats, peak, reqs) -> dict:
             "peak_memory_gb": peak}
 
 
-def _arch_step(torch, K, eng, params, cfg, pos, backend, ops, fac) -> dict:
+def _cache_dtype(eng):
+    """The dtype of a serving engine's cache pool."""
+    from repro_torch.optim.adamw import flatten
+    return flatten(eng.pool)[0][1].dtype
+
+
+def _arch_step(torch, K, eng, params, cfg, pos, backend, ops, fac,
+               detail) -> dict:
     """A fixed-shape decode step of ``eng``'s pool at positions ``pos``:
     ARCH_STEP_REPS host-timed calls, one profiled (busy, port kernels,
-    idle share), its kernel launches against the config's projections and
-    tiles, and, for a CUDA backend, the bound of its launches."""
+    idle share), its step-level bound (``step_bound``), its kernel launches
+    against the config's projections and tiles, and, for a CUDA backend,
+    the bound of its launches."""
     dev = "cuda"
     tok = torch.arange(1, eng.slots + 1, device=dev)[:, None]
     pos = torch.as_tensor(pos, device=dev)
@@ -2389,6 +2412,10 @@ def _arch_step(torch, K, eng, params, cfg, pos, backend, ops, fac) -> dict:
     row = {"fixed_step_ms": {"median": med, "min": min(ms), "max": max(ms),
                              "n": ARCH_STEP_REPS}, **prof,
            "idle_share": 1 - prof["device_busy_ms"] / med}
+    row["step_cost"] = step_bound(
+        detail, f"{cfg.name} L{cfg.n_layers} {backend}", cfg, "decode",
+        eng.slots, eng.max_len, med, pos=[int(p) for p in pos],
+        cache_dtype=_cache_dtype(eng))
     if backend in CUDA_BACKENDS:
         var = SERVE_KERNEL[backend]
         check(n == _step_launches(K, cfg, var),
@@ -2502,7 +2529,8 @@ def gemma_phase(torch, detail, dev: str, full: bool, ops=None) -> tuple:
         row = _serving_row(rec, stats, peak, reqs)
         if dev == "cuda":
             row.update(_arch_step(torch, K, eng, params, cfg,
-                                  [40, 50, 60, 70], be, ops, fac))
+                                  [40, 50, 60, 70], be, ops, fac,
+                                  detail))
         out["full"][be] = row
         _print_arch(f"gemma3 L{cfg0.n_layers}", be, row)
         del eng, rec        # the recorder holds the engine, and its params
@@ -2537,7 +2565,8 @@ def gemma_phase(torch, detail, dev: str, full: bool, ops=None) -> tuple:
         if dev == "cuda":
             row.update(_arch_step(
                 torch, K, eng, params, cfg,
-                [window + 7 + 11 * i for i in range(slots)], be, ops, fac))
+                [window + 7 + 11 * i for i in range(slots)], be, ops, fac,
+                detail))
         out["ring"][be] = row
         _print_arch(f"gemma3 L{RING_DEPTH} ring", be, row)
         del eng, rec
@@ -2695,7 +2724,8 @@ def deepseek_phase(torch, detail, dev: str, full: bool, ops=None) -> tuple:
         row = _serving_row(rec, stats, peak, reqs)
         if dev == "cuda" and be not in ("approx_lut", "approx_stage1"):
             row.update(_arch_step(torch, K, eng, params, cfg,
-                                  [40, 50, 60, 70], be, ops, fac))
+                                  [40, 50, 60, 70], be, ops, fac,
+                                  detail))
         out[be] = row
         _print_arch(f"deepseek-v2 L{cfg0.n_layers}", be, row)
         del eng, rec
@@ -2870,7 +2900,7 @@ def _cache_free_rows(torch, TLM, params, cfg, reqs, run, dev) -> dict:
     return out
 
 
-def _ssm_arch(torch, dev, full, ops, arch, launches) -> dict:
+def _ssm_arch(torch, detail, dev, full, ops, arch, launches) -> dict:
     """One SSM arch (see the module docstring, phase 11)."""
     import dataclasses
     from repro_torch.configs import registry
@@ -2925,7 +2955,8 @@ def _ssm_arch(torch, dev, full, ops, arch, launches) -> dict:
         row["prefill_tokens"] = len(longest)
         if dev == "cuda":
             row.update(_arch_step(torch, K, eng, params, cfg,
-                                  [40, 50, 60, 70], be, ops, fac))
+                                  [40, 50, 60, 70], be, ops, fac,
+                                  detail))
         out["whole"][be] = row
         _print_arch(label, be, row)
         print(f"  {label} {be:22s} prefill of {len(longest)} tokens: median "
@@ -3001,7 +3032,8 @@ def ssm_phase(torch, detail, dev: str, full: bool, ops=None) -> tuple:
     launches = {key: 0 for key in launch_counts(K)}
     out = {"wkv": wkv_check(torch, SSM, dev, full)}
     for arch in SSM_ARCHS:
-        out[arch] = _ssm_arch(torch, dev, full, ops, arch, launches)
+        out[arch] = _ssm_arch(torch, detail, dev, full, ops, arch,
+                              launches)
         if dev == "cuda":
             torch.cuda.empty_cache()
     detail["ssm"] = out
@@ -3087,17 +3119,14 @@ def _train_batches(toks, stamps):
         i += 1
 
 
-def train_loop_check(torch, dev: str, full: bool) -> dict:
+def train_loop_check(torch, detail, dev: str, full: bool) -> dict:
     """Part (a): the fault-tolerant loop on smollm-135m at its published
     width (``full``; else the 2-layer, 64-wide smollm on the CPU): QAT,
     quantized AdamW, two microbatches. The first run raises after step
     TRAIN_FAIL; the rerun resumes from step 8 and runs 4 steps; every
     leaf restored from step 8 equals the host copy that was saved, bit
-    for bit; the loss is finite and falls. Then the example
-    (``python -m repro_torch.examples.lm_train``) crashes and reruns once
-    in a subprocess."""
+    for bit; the loss is finite and falls."""
     import io
-    import shutil
     from repro_torch.configs import registry
     from repro_torch.data import synthetic
     from repro_torch.models import transformer_lm as TLM
@@ -3190,6 +3219,10 @@ def train_loop_check(torch, dev: str, full: bool) -> dict:
             "restore": {"step": 8, "s": restore_s, "bytes": rec.bytes[8],
                         "leaves": len(pairs), "bitwise": True,
                         "dtypes": sorted(dtypes)}}
+    line["step_cost"] = step_bound(
+        detail, f"train loop {cfg.name} L{cfg.n_layers} QAT step", cfg,
+        "train", TRAIN_BATCH, TRAIN_SEQ, line["ms_per_step"], qat=True,
+        microbatches=2)
     print(f"  train loop {cfg.name}: crashed after step {TRAIN_FAIL}, "
           f"resumed from step {out['resumed_from']}; loss "
           f"{first_losses[0]:.4f} -> {out['losses'][-1]:.4f}; "
@@ -3203,31 +3236,6 @@ def train_loop_check(torch, dev: str, full: bool) -> dict:
     if dev == "cuda":
         torch.cuda.empty_cache()
 
-    # the example, once, in a subprocess
-    ex_dir = ROOT / "build" / "lm_train_example"
-    shutil.rmtree(ex_dir, ignore_errors=True)
-    cmd = [sys.executable, "-m", "repro_torch.examples.lm_train",
-           "--model-scale", "100m" if full else "tiny", "--crash",
-           "--steps", str(EXAMPLE_STEPS), "--ckpt-dir", str(ex_dir),
-           "--device", dev]
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
-                         env=env, cwd=ROOT)
-    ex_s = time.perf_counter() - t0
-    m = re.search(r"final loss (\S+) \(resumed_from=(\w+)\)", res.stdout)
-    check(res.returncode == 0 and m is not None
-          and "crashed as requested" in res.stdout,
-          f"lm_train example failed (exit {res.returncode}): "
-          f"{res.stdout[-2000:]} {res.stderr[-2000:]}")
-    check(np.isfinite(float(m.group(1))) and m.group(2) == "None",
-          f"lm_train example: {m.group(0)}")
-    line["example"] = {"cmd": " ".join(cmd[1:]), "s": ex_s,
-                       "final_loss": float(m.group(1)),
-                       "resumed_from": m.group(2)}
-    print(f"  python {' '.join(cmd[1:3])} --model-scale "
-          f"{'100m' if full else 'tiny'} --crash --steps {EXAMPLE_STEPS}: "
-          f"exit 0 in {ex_s:.1f} s, {m.group(0)}", flush=True)
     return line
 
 
@@ -3261,7 +3269,7 @@ def _token_batches(torch, cfg, dev: str):
     return batch
 
 
-def train_arch_check(torch, dev: str, full: bool, arch: str,
+def train_arch_check(torch, detail, dev: str, full: bool, arch: str,
                      launches: dict, depth_count=None,
                      batches=_token_batches) -> dict:
     """Part (b), one arch: ARCH_TRAIN_STEPS ``make_train_step(qat=True)``
@@ -3330,6 +3338,9 @@ def train_arch_check(torch, dev: str, full: bool, arch: str,
         b = batch(ARCH_TRAIN_STEPS)
         prof = _profile_ms(torch, lambda: step(params, opt, b))
         med = statistics.median(step_ms)
+        row["step_cost"] = step_bound(
+            detail, f"{label} QAT step", cfg, "train", *TRAIN_ROWS, med,
+            qat=True)
         row.update({"ms_per_step": med, **prof,
                     "idle_share": 1 - prof["device_busy_ms"] / med,
                     "peak_memory_gb":
@@ -3402,9 +3413,10 @@ def train_phase(torch, detail, dev: str, full: bool) -> tuple:
     from repro_torch.kernels import approx_matmul as K
 
     launches = {key: 0 for key in launch_counts(K)}
-    out = {"loop": train_loop_check(torch, dev, full)}
+    out = {"loop": train_loop_check(torch, detail, dev, full)}
     for arch in TRAIN_ARCHS:
-        out[arch] = train_arch_check(torch, dev, full, arch, launches)
+        out[arch] = train_arch_check(torch, detail, dev, full, arch,
+                                     launches)
         if dev == "cuda":
             torch.cuda.empty_cache()
     detail["train"] = out
@@ -3579,7 +3591,7 @@ def _xattn_bound_ms(cfg, rows: int, variant: str, ops, fac) -> float:
             + kv(rows * cfg.enc_len) - kv(rows))
 
 
-def _xattn_arch(torch, dev, full, ops, arch, launches) -> dict:
+def _xattn_arch(torch, detail, dev, full, ops, arch, launches) -> dict:
     """One arch of phase 13 (see the module docstring)."""
     from repro_torch.configs import registry
     from repro_torch.core import factor as F
@@ -3656,6 +3668,13 @@ def _xattn_arch(torch, dev, full, ops, arch, launches) -> dict:
             n = _launches(K)
             row.update({**prof, "idle_share": 1 - prof["device_busy_ms"]
                         / med})
+            kw = dict(max_len=prompt + steps, cache_dtype=torch.float32)
+            row["prefill_cost"] = step_bound(
+                detail, f"{label} {be} prefill", cfg, "prefill", rows_n,
+                prompt, run["prefill_ms"], **kw)
+            row["step_cost"] = step_bound(
+                detail, f"{label} {be}", cfg, "decode", rows_n,
+                prompt + steps, med, pos=prompt, **kw)
             if be in CUDA_BACKENDS:
                 var = SERVE_KERNEL[be]
                 want = _step_launches(K, cfg, var)
@@ -3749,7 +3768,7 @@ def _xattn_arch(torch, dev, full, ops, arch, launches) -> dict:
 
     # --- training: QAT steps, the STE steps, the oracles on a cut batch
     out["train"] = train_arch_check(
-        torch, dev, full, arch, launches,
+        torch, detail, dev, full, arch, launches,
         depth_count=XATTN_ARCHS[arch][3], batches=_xattn_batches)
     return out
 
@@ -3764,11 +3783,191 @@ def xattn_phase(torch, detail, dev: str, full: bool, ops=None) -> tuple:
     launches = {key: 0 for key in launch_counts(K)}
     out = {}
     for arch in XATTN_ARCHS:
-        out[arch] = _xattn_arch(torch, dev, full, ops, arch, launches)
+        out[arch] = _xattn_arch(torch, detail, dev, full, ops, arch,
+                                launches)
         if dev == "cuda":
             torch.cuda.empty_cache()
     detail["xattn"] = out
     return out, launches
+
+
+# ---------------------------------------------------------------------------
+# Phase 14: the examples on the card, the dry-run beside them; phase 15:
+# the dry-run's records
+# ---------------------------------------------------------------------------
+
+DRYRUN_OUT = ROOT / "build" / "dryrun"
+DRYRUN_SHAPE = "decode_32k"     # the launch phase's cell of every arch
+# The dry-run counts on the host alone; it runs beside the examples, after
+# the last timed phase, and the launch phase checks what it wrote.
+DRYRUN = ("dryrun", "repro_torch.launch.dryrun",
+          ("--shape", DRYRUN_SHAPE, "--out", str(DRYRUN_OUT)))
+# Runs an example module as ``__main__`` in its own process, then prints
+# the kernel launches it made (the wrappers count in that process) as the
+# last line of its output.
+EXAMPLE_RUNNER = """
+import json, runpy, sys
+from repro_torch.kernels import approx_matmul as K
+name, sys.argv = sys.argv[1], [sys.argv[1]] + sys.argv[2:]
+rc = 0
+try:
+    runpy.run_module(name, run_name="__main__", alter_sys=True)
+except SystemExit as e:
+    rc = e.code or 0
+print(json.dumps({"launches": [[e, v, getattr(K, e).variant_launches[v]]
+                               for e in ("approx_matmul", "fused_matmul",
+                                         "rank1_matmul",
+                                         "rank1_fused_matmul")
+                               for v in getattr(K, e).variant_launches]}))
+sys.exit(rc)
+"""
+# (label, module, arguments): run together, each in its own process
+EXAMPLES = (
+    ("quickstart", "repro_torch.examples.quickstart", ()),
+    ("serve_lm", "repro_torch.examples.serve_lm",
+     ("--backend", "approx_deficit_pallas", "--stream")),
+    ("serve_lm_spec", "repro_torch.examples.serve_lm",
+     ("--backend", "approx_deficit_pallas", "--stream", "--spec-k", "4",
+      "--draft-backend", "approx_stage1_pallas")),
+    ("serve_cli", "repro_torch.serve", ("--backend", "approx_deficit_pallas")),
+    ("denoise", "repro_torch.examples.denoise", ("--smoke",)),
+    ("mnist_train", "repro_torch.examples.mnist_train", ("--smoke",)),
+    ("lm_train", "repro_torch.examples.lm_train",
+     ("--model-scale", "100m", "--crash", "--steps", str(EXAMPLE_STEPS),
+      "--ckpt-dir", str(ROOT / "build" / "lm_train_example"))),
+)
+EXAMPLE_TIMEOUT = 600
+EXAMPLES_OUT = ROOT / "build" / "examples"
+
+
+def _src_env(**extra) -> dict:
+    return {**os.environ, "PYTHONPATH": str(ROOT / "src"), **extra}
+
+
+def launch_phase(dry) -> tuple:
+    """Check the dry-run that ran beside the examples (``DRYRUN``: its exit
+    code, output and seconds): exit 0, one record per arch; one line per
+    cell (FLOPs, state GiB, fits_one_card). Returns the launch line and
+    every cell's numbers."""
+    from repro_torch.launch.dryrun import cells
+    rc, stdout, stderr, wall = dry
+    text = stdout + stderr
+    check(rc == 0, f"the dry-run exited {rc}:\n{text[-3000:]}")
+    want = cells(None, DRYRUN_SHAPE, False)
+    out = {"cells": {}, "wall_s": wall}
+    for arch, shape in want:
+        path = DRYRUN_OUT / f"{arch}_{shape}.json"
+        check(path.exists(), f"the dry-run wrote no record of {arch} "
+              f"{shape}")
+        rec = json.loads(path.read_text())
+        check(rec["flops"] > 0 and rec["bytes_min"] > 0,
+              f"{arch} {shape}: empty record")
+        gib = rec["state_bytes"]["total"] / 2 ** 30
+        out["cells"][f"{arch} {shape}"] = {
+            "flops": rec["flops"], "flops_min": rec["flops_min"],
+            "bytes_min": rec["bytes_min"], "bound_ms": rec["bound_ms"],
+            "state_gib": gib, "fits_one_card": rec["fits_one_card"],
+            "host_s": rec["host_s"]}
+        print(f"  {arch:22s} {shape:12s} {rec['flops']:.4e} FLOPs, state "
+              f"{gib:9.2f} GiB, fits_one_card {rec['fits_one_card']}")
+    m = re.search(r"(\d+) of (\d+) cells counted in ([\d.]+) s", text)
+    check(m is not None and m.group(1) == m.group(2) == str(len(want)),
+          "the dry-run did not count every cell")
+    out["host_s"] = float(m.group(3))
+    print(f"  {len(want)} cells counted in {out['host_s']:.1f} s of host "
+          f"time ({wall:.1f} s with the process, beside the examples)")
+    line = {"cells": len(want), "host_s": out["host_s"], "wall_s": wall,
+            "fits_one_card": sorted(k for k, v in out["cells"].items()
+                                    if v["fits_one_card"])}
+    return line, out
+
+
+def _stream_tokens(text: str) -> dict:
+    """{rid: [token, ...]} from the serve CLI's ``--stream`` lines."""
+    toks: dict = {}
+    for rid, tok in re.findall(r"^  rid (\d+) -> (\d+)$", text, re.M):
+        toks.setdefault(int(rid), []).append(int(tok))
+    return toks
+
+
+def examples_phase(torch, K) -> tuple:
+    """Run EXAMPLES on the card, all at once, each in its own process
+    (its output in build/examples/); a nonzero exit fails the phase.
+    quickstart prints ER=6.940% and the deficit identity; serve_lm's
+    speculative serving (K = 4, the approx_stage1_pallas draft) serves the
+    tokens of its sequential one; the serve CLI serves full-width
+    smollm-135m; denoise and mnist_train train and sweep at their smoke
+    budgets; lm_train trains full-width smollm-135m, crashes after its
+    first step and resumes from its own checkpoint (a fresh directory) to
+    a finite loss. The dry-run (``DRYRUN``) runs beside them. Returns the
+    line, the kernel launches of the examples' processes and the dry-run's
+    exit code, output and seconds."""
+    EXAMPLES_OUT.mkdir(parents=True, exist_ok=True)
+    shutil.rmtree(ROOT / "build" / "lm_train_example", ignore_errors=True)
+    procs, outs = {}, {}
+    t0 = time.perf_counter()
+    try:
+        for label, module, args in EXAMPLES + (DRYRUN,):
+            with open(EXAMPLES_OUT / f"{label}.out", "w") as out, \
+                    open(EXAMPLES_OUT / f"{label}.err", "w") as err:
+                procs[label] = subprocess.Popen(
+                    [sys.executable, "-c", EXAMPLE_RUNNER, module, *args],
+                    cwd=ROOT, stdout=out, stderr=err, env=_src_env())
+        while len(outs) < len(procs):
+            check(time.perf_counter() - t0 < EXAMPLE_TIMEOUT,
+                  f"examples still running after {EXAMPLE_TIMEOUT} s: "
+                  f"{sorted(set(procs) - set(outs))}")
+            for label, proc in procs.items():
+                if label not in outs and proc.poll() is not None:
+                    outs[label] = (proc.returncode,
+                                   (EXAMPLES_OUT / f"{label}.out").read_text(),
+                                   (EXAMPLES_OUT / f"{label}.err").read_text(),
+                                   time.perf_counter() - t0)
+            time.sleep(0.2)
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    dry = outs.pop(DRYRUN[0])
+    launches = {key: 0 for key in launch_counts(K)}
+    line = {}
+    for label, (rc, stdout, stderr, secs) in outs.items():
+        check(rc == 0, f"example {label} exited {rc}:\n{stdout[-2000:]}"
+              f"\n{stderr[-3000:]}")
+        lines = [ln for ln in stdout.strip().splitlines() if ln.strip()]
+        for entry, var, n in json.loads(lines[-1])["launches"]:
+            launches[(entry, var)] += n
+        line[label] = {"s": secs, "last": lines[-2] if len(lines) > 1
+                       else ""}
+        print(f"  {label}: exit 0 after {secs:.1f} s; {line[label]['last']}"
+              [:220], flush=True)
+    quick = outs["quickstart"][1]
+    check("ER=6.940%" in quick and "identity OK" in quick,
+          "quickstart: no ER=6.940% or no identity OK")
+    seq, spec = (_stream_tokens(outs[k][1]) for k in ("serve_lm",
+                                                      "serve_lm_spec"))
+    check(seq and spec == seq, "serve_lm --spec-k 4 served other tokens "
+          "than --spec-k 0")
+    check("tokens bitwise identical to --spec-k 0" in outs["serve_lm_spec"][1],
+          "serve_lm --spec-k 4 printed no speculation summary")
+    check("backend=approx_deficit_pallas" in outs["serve_cli"][1],
+          "python -m repro_torch.serve printed no summary")
+    check("paper Table 5" in outs["mnist_train"][1]
+          and "| approx_rank1_pallas |" in outs["mnist_train"][1]
+          and "| approx_rank1_pallas |" in outs["denoise"][1],
+          "denoise / mnist_train printed no sweep table")
+    m = re.search(r"final loss (\S+) \(resumed_from=(\w+)\)",
+                  outs["lm_train"][1])
+    check(m is not None and "crashed as requested" in outs["lm_train"][1]
+          and np.isfinite(float(m.group(1))) and m.group(2) == "None",
+          "lm_train --model-scale 100m --crash: no crash and restart, or "
+          "no finite final loss")
+    line["lm_train_final_loss"] = float(m.group(1))
+    line["serve_lm_tokens"] = sum(len(t) for t in seq.values())
+    print(f"  serve_lm: --spec-k 4 served the {line['serve_lm_tokens']} "
+          f"tokens of --spec-k 0 over {len(seq)} requests", flush=True)
+    return line, launches, dry
 
 
 if __name__ == "__main__":

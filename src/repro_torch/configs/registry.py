@@ -1,7 +1,9 @@
 """Architecture registry: --arch lookup, vocab padding, reduced configs,
 after the JAX package's ``repro.configs.registry``.
 
-``get(name)`` returns the full published config (vocab padded to a
+``SHAPES`` names the JAX package's four LM cells (sequence, batch, kind),
+and ``applicable_shapes(name)`` the ones an arch runs (``long_500k`` only
+for sub-quadratic archs). ``get(name)`` returns the full published config (vocab padded to a
 multiple of 256; logits are masked back to the true vocab). ``reduced(name)``
 returns a tiny same-family config for CPU tests (the same code paths).
 The port runs every name of ``ARCH_NAMES``: the dense global-attention
@@ -32,6 +34,14 @@ _MODULES = {
 }
 
 ARCH_NAMES = tuple(_MODULES)
+
+# LM shape set (assignment): name -> (seq_len, global_batch, kind)
+SHAPES = {
+    "train_4k": (4096, 256, "train"),
+    "prefill_32k": (32768, 32, "prefill"),
+    "decode_32k": (32768, 128, "decode"),
+    "long_500k": (524288, 1, "decode"),
+}
 
 
 def _pad_vocab(v: int, mult: int = 256) -> int:
@@ -79,3 +89,14 @@ def reduced(name: str, **overrides) -> ArchConfig:
     )
     small.update(overrides)
     return dataclasses.replace(cfg, **small)
+
+
+def applicable_shapes(name: str):
+    """Shape cells for this arch, as the JAX package's: long_500k only for
+    sub-quadratic archs (compressed, windowed or recurrent state); an arch
+    of full global attention skips it."""
+    cfg = get(name)
+    out = ["train_4k", "prefill_32k", "decode_32k"]
+    if cfg.sub_quadratic:
+        out.append("long_500k")
+    return out

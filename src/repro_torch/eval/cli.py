@@ -3,11 +3,15 @@
 Commands:
   run       execute suites, write `<out>/<suite>.json` + `<suite>.md`
   render    re-render `<suite>.md` from existing JSON artifacts (no compute)
+  docs      inject the rendered tables into docs/reproduce_torch.md between
+            `<!-- eval:<suite>:begin/end -->` markers (--check verifies the
+            committed document is byte-identical to the regenerated tables)
   backends  list the registered quant backends swept by the task suites
 
 Artifacts go to ``experiments/torch/eval/`` (``--out`` to change it),
-never to the JAX package's ``experiments/eval/``. ``--device`` defaults to
-``cuda``; ``--device cpu`` runs every suite on the CPU.
+never to the JAX package's ``experiments/eval/``; the examples write to
+``experiments/torch/scratch/``. ``--device`` defaults to ``cuda``;
+``--device cpu`` runs every suite on the CPU.
 """
 from __future__ import annotations
 
@@ -31,6 +35,10 @@ REPO_ROOT = _repo_root()
 SUITE_HELP = ("'all', one of metrics/hw/denoise/mnist/lm/serve, or a "
               "comma list (e.g. 'metrics,hw')")
 DEFAULT_OUT = REPO_ROOT / "experiments" / "torch" / "eval"
+# where the examples and ad-hoc runs write, so that they never dirty the
+# committed artifacts that docs --check holds the document to
+SCRATCH_OUT = REPO_ROOT / "experiments" / "torch" / "scratch"
+DOCS_PATH = REPO_ROOT / "docs" / "reproduce_torch.md"
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -53,6 +61,14 @@ def _parser() -> argparse.ArgumentParser:
                           help="re-render markdown from JSON artifacts")
     rend.add_argument("--suite", default="all", help=SUITE_HELP)
     rend.add_argument("--out", type=Path, default=DEFAULT_OUT)
+
+    docs = sub.add_parser("docs",
+                          help="sync tables into docs/reproduce_torch.md")
+    docs.add_argument("--out", type=Path, default=DEFAULT_OUT,
+                      help="artifact directory to render from")
+    docs.add_argument("--docs-path", type=Path, default=DOCS_PATH)
+    docs.add_argument("--check", action="store_true",
+                      help="verify instead of write; exit 1 on drift")
 
     sub.add_parser("backends", help="list registered quant backends")
     return ap
@@ -119,6 +135,42 @@ def _cmd_render(args) -> int:
     return 0
 
 
+def _cmd_docs(args) -> int:
+    from repro_torch.eval import artifacts, markdown
+    from repro_torch.eval.runners import render_artifact
+    text = args.docs_path.read_text()
+    drift = []
+    for name in markdown.block_names(text):
+        path = args.out / f"{name}.json"
+        if not path.exists():
+            print(f"[repro_torch.eval] missing artifact {path} for docs "
+                  f"block {name!r}", file=sys.stderr)
+            return 1
+        rendered = render_artifact(artifacts.load(path))
+        current = markdown.extract_block(text, name)
+        if current is None:      # begin marker without a matching end
+            print(f"[repro_torch.eval] docs block {name!r} has a begin "
+                  f"marker but no end marker in {args.docs_path}",
+                  file=sys.stderr)
+            return 1
+        # byte-exact against what inject_block would write, so --check
+        # passing guarantees `docs` is a no-op
+        if current != "\n" + rendered:
+            drift.append(name)
+        text = markdown.inject_block(text, name, rendered)
+    if args.check:
+        if drift:
+            print(f"[repro_torch.eval] docs drift in blocks: {drift} (run "
+                  f"`python -m repro_torch.eval docs` to update)")
+            return 1
+        print("[repro_torch.eval] docs tables match regenerated artifacts")
+        return 0
+    args.docs_path.write_text(text)
+    print(f"[repro_torch.eval] updated {args.docs_path} "
+          f"({'no changes' if not drift else 'blocks: ' + ', '.join(drift)})")
+    return 0
+
+
 def _cmd_backends(args) -> int:
     from repro_torch.quant.matmul import backend_notes
     for name, note in backend_notes().items():
@@ -128,5 +180,5 @@ def _cmd_backends(args) -> int:
 
 def main(argv: Optional[List[str]] = None) -> int:
     args = _parser().parse_args(argv)
-    return {"run": _cmd_run, "render": _cmd_render,
+    return {"run": _cmd_run, "render": _cmd_render, "docs": _cmd_docs,
             "backends": _cmd_backends}[args.command](args)

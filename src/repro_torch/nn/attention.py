@@ -38,7 +38,7 @@ import dataclasses
 import torch
 
 from repro_torch.nn import layers as L
-from repro_torch.nn.module import ParamDesc
+from repro_torch.nn.module import ParamDesc, resolve_device
 from repro_torch.quant.quantize import QuantConfig
 
 NEG = -2.0 ** 30
@@ -138,7 +138,12 @@ def attn_desc(cfg: AttnConfig, dtype=torch.float32):
 
 
 def init_cache(cfg: AttnConfig, batch: int, max_len: int,
-               dtype=torch.bfloat16, device="cpu"):
+               dtype=torch.bfloat16, device="cuda"):
+    """One layer's zero cache on ``device`` (the card unless the caller
+    asks for another): MLA's ckv / kpe (batch, max_len, kv_lora |
+    rope_dim), or k / v (batch, slots, Hkv, Dh) with slots = max_len, or
+    min(window, max_len) for a windowed layer."""
+    device = resolve_device(device)
     if cfg.is_mla:
         return {"ckv": torch.zeros((batch, max_len, cfg.kv_lora),
                                    dtype=dtype, device=device),

@@ -114,6 +114,32 @@ def conv2d(params, x: torch.Tensor, quant: QuantConfig, stride: int = 1,
     return y
 
 
+def batchnorm_desc(c: int, dtype=torch.float32):
+    return {"scale": ParamDesc((c,), (None,), "ones", dtype=dtype),
+            "bias": ParamDesc((c,), (None,), "zeros", dtype=dtype),
+            "mean": ParamDesc((c,), (None,), "zeros", dtype=dtype),
+            "var": ParamDesc((c,), (None,), "ones", dtype=dtype)}
+
+
+def batchnorm(params, x: torch.Tensor, training: bool = False,
+              momentum: float = 0.9, eps: float = 1e-5):
+    """Returns (y, new_stats) over the channel (last) axis. Training
+    normalizes by the batch's mean and population variance and moves the
+    running stats toward them by ``1 - momentum``; inference uses the
+    stored running stats and returns them unchanged."""
+    if training:
+        red = tuple(range(x.ndim - 1))
+        mu = x.mean(dim=red)
+        var = x.var(dim=red, unbiased=False)
+        new = {"mean": momentum * params["mean"] + (1 - momentum) * mu,
+               "var": momentum * params["var"] + (1 - momentum) * var}
+    else:
+        mu, var = params["mean"], params["var"]
+        new = {"mean": params["mean"], "var": params["var"]}
+    y = (x - mu) * torch.rsqrt(var + eps) * params["scale"] + params["bias"]
+    return y, new
+
+
 def maxpool2(x: torch.Tensor) -> torch.Tensor:
     b, h, w, c = x.shape
     return x.reshape(b, h // 2, 2, w // 2, 2, c).amax(dim=(2, 4))

@@ -26,6 +26,9 @@ from typing import Dict, List, Tuple
 import torch
 import torch.nn.functional as Fn
 
+from repro_torch.nn import module as M
+from repro_torch.nn.module import ParamDesc
+
 VBLOCK = 128
 UPDATE_SLICE = 1 << 24   # elements of a leaf updated at once
 
@@ -76,25 +79,40 @@ def unflatten(pairs) -> Dict:
     return _listify(out)
 
 
-def _state_for(p: torch.Tensor, cfg: AdamWConfig) -> Dict[str, torch.Tensor]:
-    if cfg.quantized_state:
-        nb = -(-p.shape[-1] // VBLOCK)
-        return {"m": torch.zeros_like(p, dtype=torch.bfloat16),
-                "v_q": torch.zeros_like(p, dtype=torch.int8),
-                "v_scale": torch.ones(p.shape[:-1] + (nb,),
-                                      dtype=torch.float32, device=p.device)}
-    return {"m": torch.zeros_like(p, dtype=torch.float32),
-            "v": torch.zeros_like(p, dtype=torch.float32)}
+def _scale_desc(d: ParamDesc) -> ParamDesc:
+    nb = -(-d.shape[-1] // VBLOCK)
+    return dataclasses.replace(d, shape=d.shape[:-1] + (nb,), init="ones",
+                               dtype=torch.float32)
+
+
+def state_descs(param_descs, cfg: AdamWConfig):
+    """The optimizer state of a parameter descriptor tree, as descriptors:
+    per leaf the moments (bf16 m, int8 v codes and float32 v scales per
+    block of the last dim in quantized mode; float32 m and v otherwise),
+    and the int32 step count. ``launch.specs`` builds abstract states from
+    it; ``init`` allocates exactly what it describes."""
+    def per_param(d: ParamDesc):
+        zero = dataclasses.replace(d, init="zeros")
+        if cfg.quantized_state:
+            return {"m": dataclasses.replace(zero, dtype=torch.bfloat16),
+                    "v_q": dataclasses.replace(zero, dtype=torch.int8),
+                    "v_scale": _scale_desc(d)}
+        return {"m": dataclasses.replace(zero, dtype=torch.float32),
+                "v": dataclasses.replace(zero, dtype=torch.float32)}
+    return {"params": M.tree_map(per_param, param_descs),
+            "count": ParamDesc((1,), (None,), "zeros", dtype=torch.int32)}
 
 
 def init(params, cfg: AdamWConfig):
     """Zero moments (unit v scales) for every leaf, and a zero step count,
-    on the parameters' device."""
+    on the parameters' device: ``state_descs`` of the parameters' shapes
+    and dtypes, allocated."""
     pairs = flatten(params)
     dev = pairs[0][1].device if pairs else torch.device("cpu")
-    return {"params": unflatten([(path, _state_for(p, cfg))
-                                 for path, p in pairs]),
-            "count": torch.zeros((1,), dtype=torch.int32, device=dev)}
+    descs = unflatten((path, ParamDesc(tuple(p.shape), (None,) * p.ndim,
+                                       dtype=p.dtype))
+                      for path, p in pairs)
+    return M.init_params(state_descs(descs, cfg), None, dev)
 
 
 def _pad_blocks(t: torch.Tensor) -> torch.Tensor:

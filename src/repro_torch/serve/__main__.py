@@ -4,6 +4,7 @@
     python -m repro_torch.serve --device cpu --reduced
     python -m repro_torch.serve --sampling top_k --top-k 8
     python -m repro_torch.serve --arch rwkv6-3b [--device cpu --reduced]
+    python -m repro_torch.serve --spec-k 4 --draft-backend approx_stage1
 
 The port's counterpart of the JAX package's ``examples/serve_lm.py``: a
 mixed-length request queue is served through the fixed-slot KV pool, with
@@ -16,7 +17,11 @@ than its ring (hymba's reduced window is 8). It runs on the card unless
 ``--device cpu``. The engine serves token models only:
 ``--arch llama-3.2-vision-11b`` (cross-attention) and ``--arch
 musicgen-large`` (stub embeddings) exit with its ``ValueError`` before any
-weight is drawn.
+weight is drawn. ``--spec-k K`` serves with draft-model speculation
+(``serve/speculative.py``): the served tokens are bitwise those of
+``--spec-k 0``, only the number of passes changes. The JAX example's
+``--mesh`` waits for the port's sharding slice (ROADMAP.md queue A, item
+20).
 """
 from __future__ import annotations
 
@@ -30,12 +35,16 @@ from repro_torch.configs import registry
 from repro_torch.models import transformer_lm as TLM
 from repro_torch.quant.matmul import list_backends
 from repro_torch.quant.quantize import for_lm
-from repro_torch.serve import Engine, SamplingConfig, ServeRequest
+from repro_torch.serve import (Engine, SamplingConfig, ServeRequest,
+                               SpecConfig)
 from repro_torch.serve.engine import check_servable
 
 
 def parse_args(argv=None):
-    ap = argparse.ArgumentParser(prog="python -m repro_torch.serve")
+    ap = argparse.ArgumentParser(
+        prog="python -m repro_torch.serve",
+        epilog="Serving over a device mesh (the JAX example's --mesh) "
+        "waits for the port's sharding slice (ROADMAP.md queue A, item 20).")
     ap.add_argument("--arch", default="smollm-135m",
                     help="architecture (configs/registry.py)")
     ap.add_argument("--reduced", action="store_true",
@@ -62,10 +71,21 @@ def parse_args(argv=None):
                     help="disable the paged KV prefix cache")
     ap.add_argument("--stream", action="store_true",
                     help="print tokens as they are emitted")
+    ap.add_argument("--spec-k", type=int, default=0, metavar="K",
+                    help="speculative decoding with a K-wide verify window "
+                         "(serve/speculative.py): served tokens are bitwise "
+                         "identical to sequential decode, only the number "
+                         "of passes changes; 0 disables")
+    ap.add_argument("--draft-backend", default="bf16",
+                    choices=["bf16", *list_backends()],
+                    help="backend the draft model proposes on (same "
+                         "params)")
     return ap.parse_args(argv)
 
 
 def main(argv=None) -> dict:
+    """Serve the workload; returns the engine's stats with the served
+    ``tokens`` ({rid: [token, ...]})."""
     args = parse_args(argv)
     if args.reduced:
         cfg = registry.reduced(args.arch, n_layers=4, d_model=128, d_ff=256)
@@ -79,9 +99,12 @@ def main(argv=None) -> dict:
                           top_k=args.top_k, seed=args.seed)
     stream = ((lambda rid, tok: print(f"  rid {rid} -> {tok}"))
               if args.stream else None)
+    spec = (SpecConfig(k=args.spec_k, draft_backend=args.draft_backend)
+            if args.spec_k > 0 else None)
     eng = Engine(cfg, params, slots=args.slots, max_len=64,
                  admission=args.policy, stream=stream,
-                 prefix_caching=not args.no_prefix_cache, device=args.device)
+                 prefix_caching=not args.no_prefix_cache, spec=spec,
+                 device=args.device)
     rng = np.random.default_rng(args.seed)
     shared = rng.integers(0, cfg.vocab, args.shared_prefix).astype(np.int32)
     # a windowed ring takes a prompt of at most its window
@@ -117,7 +140,15 @@ def main(argv=None) -> dict:
           f"({stats['prefix_hit_tokens']} of "
           f"{stats['prefix_hit_tokens'] + stats['prefill_tokens']} prompt "
           f"tokens from cache)")
-    return stats
+    if spec is not None:
+        print(f"speculative K={args.spec_k} draft={args.draft_backend}: "
+              f"{stats['spec_passes']} verify passes, "
+              f"{stats['spec_committed']} committed "
+              f"({stats['spec_accept_mean']:.2f} drafts accepted/pass, "
+              f"hist {stats['spec_accept_hist']}) — tokens bitwise "
+              f"identical to --spec-k 0")
+    return {**stats, "tokens": {r.rid: [int(t) for t in r.output]
+                                for r in eng.completed}}
 
 
 if __name__ == "__main__":

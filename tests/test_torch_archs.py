@@ -131,7 +131,7 @@ def test_windowed_ring_apply_matches_reference(backend):
     rp, pp = _layer_params("gemma3-27b", "local")
     rq, pq = RQ.for_lm(backend), for_lm(backend)
     rc = RA.init_cache(racfg, 2, RING_MAX_LEN, jnp.float32)
-    pc = A.init_cache(acfg, 2, RING_MAX_LEN, torch.float32)
+    pc = A.init_cache(acfg, 2, RING_MAX_LEN, torch.float32, "cpu")
     assert pc["k"].shape[1] == acfg.window == 8
     ref = jax.jit(lambda x, c, pos: RA.apply(
         rp, x, racfg, DEFAULT_RULES, rq, cache=c, pos=pos))
@@ -160,13 +160,13 @@ def test_a_prefill_longer_than_the_ring_is_refused(entry):
     if entry == "attention":
         acfg = pcfg.attn_cfg("local")
         _, pp = _layer_params("gemma3-27b", "local")
-        cache = A.init_cache(acfg, 1, RING_MAX_LEN, torch.float32)
+        cache = A.init_cache(acfg, 1, RING_MAX_LEN, torch.float32, "cpu")
         x = torch.from_numpy(RNG.normal(size=(1, 9, 128)).astype(np.float32))
         with pytest.raises(ValueError, match="ring buffer of 8 slots"):
             A.apply(pp, x, acfg, for_lm("bf16"), cache=cache)
         A.apply(pp, x[:, :8], acfg, for_lm("bf16"), cache=cache)
         A.apply(pp, x[:, :6], acfg, for_lm("bf16"),
-                cache=A.init_cache(acfg, 1, 6, torch.float32))
+                cache=A.init_cache(acfg, 1, 6, torch.float32, "cpu"))
     elif entry == "prefill":
         cache = PT.init_cache(pcfg, 1, RING_MAX_LEN, torch.float32, "cpu")
         with pytest.raises(ValueError, match="ring buffer of 8 slots"):
@@ -201,7 +201,7 @@ def test_mla_apply_with_cache_matches_reference(backend):
     rp, pp = _layer_params("deepseek-v2-236b", "attn")
     rq, pq = RQ.for_lm(backend), for_lm(backend)
     rc = RA.init_cache(racfg, 2, 12, jnp.float32)
-    pc = A.init_cache(acfg, 2, 12, torch.float32)
+    pc = A.init_cache(acfg, 2, 12, torch.float32, "cpu")
     ref = jax.jit(lambda x, c, pos: RA.apply(
         rp, x, racfg, DEFAULT_RULES, rq, cache=c, pos=pos))
     x = RNG.normal(size=(2, 6, 128)).astype(np.float32)

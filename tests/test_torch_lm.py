@@ -360,7 +360,7 @@ def test_attention_prefill_then_vector_pos_decode(backend):
     pos = np.array([5, 3], np.int32)        # each row at its own depth
     rq, pq = RQ.for_lm(backend), for_lm(backend)
     rc = RA.init_cache(racfg, 2, 12, jnp.float32)
-    pc = A.init_cache(acfg, 2, 12, torch.float32)
+    pc = A.init_cache(acfg, 2, 12, torch.float32, "cpu")
     ref = jax.jit(lambda x, c, pos: RA.apply(
         rp, x, racfg, DEFAULT_RULES, rq, cache=c, pos=pos))
     want, rc = ref(jnp.asarray(x), rc, None)
