@@ -33,7 +33,9 @@ Phases, each printing its seconds:
             1,000-token prefill, and at rwkv6-3b's and hymba-1.5b's decode
             shapes (SSM_LAYERS), at llama-3.2-vision-11b's and
             musicgen-large's decode shapes and llama's cross-attention K
-            and V over 4 x 1,601 encoder states (XATTN_LAYERS), and at the
+            and V over 4 x 1,601 encoder states (XATTN_LAYERS; at these
+            LM shapes each plain version is timed over the one call
+            checked), and at the
             train path's shapes (TRAIN_LAYERS: every projection and head
             of the seven trained archs at 8 x 64 tokens, each entry and
             plain version timed over the one call checked); K3 and
@@ -221,10 +223,14 @@ Phases, each printing its seconds:
             approx_stage1_pallas draft (the same tokens), ``python -m
             repro_torch.serve --backend approx_deficit_pallas`` at
             smollm-135m's published width, denoise and mnist_train at
-            their smoke budgets, and lm_train at --model-scale 100m with
-            --crash --steps 1 (it resumes from its own checkpoint), on
-            the card, each in its own process and all at once; a nonzero
-            exit fails the phase. Beside them, after the last timed phase,
+            their smoke budgets, lm_train at --model-scale 100m with
+            --crash --steps 1 (it resumes from its own checkpoint), and
+            ``python -m torch.distributed.run --standalone
+            --nproc-per-node 2 -m repro_torch.serve --mesh data,model
+            --dist-backend gloo --requests 4`` (smollm-135m whole under
+            bf16 over a 1 x 2 mesh of two ranks on the card), each in
+            its own process and all at once; a nonzero exit fails the
+            phase. Beside them, after the last timed phase,
             ``python -m repro_torch.launch.dryrun --shape decode_32k``
             counts on the host;
 15. launch  that dry-run (the shape's cell of each of the 10 archs;
@@ -237,16 +243,42 @@ Phases, each printing its seconds:
             config, rows and positions, a mixture-of-experts layer's
             experts at the rows routed to them) and the measured ms over
             it;
-16. launch counts, set to 0 before each of phases 4, 5 and 6 (the suite
+16. shard  run right after phase 8, since it reuses phase 7's state:
+            SHARD_WORLD (4) ranks share the card over a gloo process group
+            (NCCL takes one rank per card), a 2 x 2 ('data', 'model')
+            DeviceMesh, spawned by repro_torch.parallel.collectives
+            .run_world; each rank turns TF32 off, loads the built kernel
+            library (it never builds it) and first probes which
+            collectives gloo takes on card tensors (the port stages the
+            others through host memory). (a) sharded_quantized_matmul and
+            sharded_integer_matmul under int8_exact and the three CUDA
+            backends, fused and unfused, equal the single-device call bit
+            for bit under every admissible (m, n, k) assignment (13) at
+            smollm-135m's decode projections (4 rows), the FFDNet middle
+            layer (16,384 x 576 x 64) and, K-sharded (6), gemma3-27b's MLP
+            down-projection (4 x 21,504 -> 5,376, its int32 sums added by
+            all_reduce); (b) Engine(mesh=) serves phase 7's workload with
+            phase 7's smollm-135m (8 layers at the published width, seed
+            0) under bf16 and the three CUDA backends: the tokens equal
+            phase 7's, every rank agrees, and every sampled logits row
+            equals phase 7's (bitwise for the CUDA backends, within
+            SHARD_BF16_ATOL under bf16); smollm's 9 heads and 3 KV heads
+            do not divide 'model', so those leaves replicate, and the MLP
+            and vocab leaves must be sharded (the plan is printed); per
+            backend the decode step's ms, its all-gather ms and the bytes
+            gathered a step;
+17. launch counts, set to 0 before each of phases 4, 5 and 6 (the suite
    runners' calls), 7 (the served runs), 8 (the speculative runs), the
-   served runs of 9, 10, 11 and 13, the STE steps of 12 and 13 and the
-   examples' processes (each reports its own), and read after it:
-   LeNet-5 and FFDNet each launch every entry but fused_matmul[exact],
-   the suites, spec, train, xattn, examples and the ring, deepseek and
-   ssm paths every fused entry, the serve path K2[deficit], K2[stage1],
-   K4 and (unfused) K1[stage1], full-depth gemma3 K2[deficit];
-17. one JSON line each ``{"suites": {...}}``, ``{"serve": {...}}``,
-   ``{"spec": {...}}``, ``{"gemma": {...}}``,
+   served runs of 9, 10, 11 and 13, the STE steps of 12 and 13, the
+   examples' processes (each reports its own) and the shard ranks'
+   sharded matmuls and served runs (summed over the ranks), and read
+   after it: LeNet-5, FFDNet and the shard ranks each launch every entry
+   but fused_matmul[exact], the suites, spec, train, xattn, examples and
+   the ring, deepseek and ssm paths every fused entry, the serve path
+   K2[deficit], K2[stage1], K4 and (unfused) K1[stage1], full-depth
+   gemma3 K2[deficit];
+18. one JSON line each ``{"suites": {...}}``, ``{"serve": {...}}``,
+   ``{"spec": {...}}``, ``{"shard": {...}}``, ``{"gemma": {...}}``,
    ``{"deepseek": {...}}``, ``{"ssm": {...}}``, ``{"train": {...}}``,
    ``{"xattn": {...}}``, ``{"examples": {...}}``, ``{"launch": {...}}``
    and ``{"kernels": [...]}``;
@@ -340,7 +372,8 @@ PATH_NEEDS = {"suites": SUITE_VARIANTS, "serve": SERVE_VARIANTS,
               "spec": SUITE_VARIANTS, "gemma": [("fused_matmul", "deficit")],
               "gemma_ring": ARCH_VARIANTS, "deepseek": ARCH_VARIANTS,
               "ssm": ARCH_VARIANTS, "train": ARCH_VARIANTS,
-              "xattn": ARCH_VARIANTS, "examples": SUITE_VARIANTS}
+              "xattn": ARCH_VARIANTS, "examples": SUITE_VARIANTS,
+              "shard": PATH_VARIANTS}
 
 LENET_LAYERS = {  # (B, M, K, N) of each quantized matmul at batch 50
     "lenet5.c1": (50, 784, 25, 6), "lenet5.c2": (50, 196, 150, 16),
@@ -534,6 +567,8 @@ def main() -> int:
     with Phase("spec"):
         lines["spec"], paths["spec"] = spec_phase(torch, detail, "cuda",
                                                   state)
+    with Phase("shard"):
+        lines["shard"], paths["shard"] = shard_phase(torch, detail, state)
     del state
     torch.cuda.empty_cache()
     with Phase("gemma"):
@@ -889,7 +924,9 @@ def kernels_phase(torch, K, detail, ops):
             if label in TIMED_LAYERS:
                 kern = functools.partial(_call, K, name, var, x, w, scale,
                                          bias, False, False)
-                pms = plain_once if train else _ms(
+                # the LM routes' plain versions at full width take up to
+                # seconds a call: the one call checked is timed
+                pms = plain_once if arch else _ms(
                     torch, lambda: _call(K, name, var, x, w, scale, bias,
                                          False, True), 2)
                 lib = operands_ms = None
@@ -1997,6 +2034,7 @@ def serve_phase(torch, detail, dev: str, full: bool, ops=None) -> tuple:
                      "param_dtype": str(cfg0.param_dtype), "slots": slots,
                      "max_len": max_len, "requests": len(reqs),
                      "cache_dtype": "float32", "seed": 0}
+    rows = {be: runs[be][1] for be in SPEC_BACKENDS}
     if dev == "cuda":
         table = params["embed"]["table"]
         w_q = quantize_dynamic(table.t(), axis=0)[0].contiguous()
@@ -2007,11 +2045,344 @@ def serve_phase(torch, detail, dev: str, full: bool, ops=None) -> tuple:
         del runs
         torch.cuda.empty_cache()
     state = {"cfg": cfg0, "params": params, "reqs": reqs, "slots": slots,
-             "max_len": max_len, "tokens": tokens,
+             "max_len": max_len, "tokens": tokens, "rows": rows,
+             "step_ms": {be: statistics.median(
+                 r["decode_step_ms_median"] for r in row["reps"])
+                 for be, row in out.items() if be in SPEC_BACKENDS},
              "ms_per_token": {be: statistics.median(
                  r["ms_per_token"] for r in row["reps"])
                  for be, row in out.items() if be in SPEC_BACKENDS}}
     return out, launches, state
+
+
+# ---------------------------------------------------------------------------
+# Phase 16: sharded serving, 4 ranks on the one card over gloo (run after
+# phase 8: it reuses phase 7's state)
+# ---------------------------------------------------------------------------
+
+SHARD_WORLD = 4
+SHARD_MESH = (2, 2)            # ('data', 'model')
+SHARD_MATMUL_BACKENDS = ("int8_exact",) + CUDA_BACKENDS
+SHARD_SERVE_BACKENDS = ("bf16",) + CUDA_BACKENDS
+SHARD_BF16_ATOL = 1e-6         # the JAX package's sharded-logits bound
+# (rows, K, N) at full width: smollm-135m's decode projections (4 slots),
+# the FFDNet middle layer, gemma3-27b's MLP down-projection (K-sharded)
+SHARD_SHAPES = {
+    **{label: (b * m, k, n) for label, (b, m, k, n) in SERVE_LAYERS.items()
+       if ".decode." in label},
+    "ffdnet.mid": (16 * 1024, 576, 64),
+    "gemma.decode.d": (4, 21504, 5376)}
+SHARD_K_ONLY = ("gemma.decode.d",)
+SHARD_SMOKE_SHAPES = {"smoke.decode": (4, 64, 48), "smoke.k": (4, 96, 32)}
+SHARD_TIMEOUT = 900
+
+
+def shard_cases(k_only: bool) -> dict:
+    """Every admissible (m, n, k) axis assignment over ('data', 'model'):
+    each dim replicated or over one axis, no axis on two dims (13); with
+    ``k_only`` those that shard K (6)."""
+    out = {}
+    for m in (None, "data", "model"):
+        for n in (None, "data", "model"):
+            for k in (None, "data", "model"):
+                used = [a for a in (m, n, k) if a]
+                if len(used) == len(set(used)) and (k or not k_only):
+                    out[f"m={m},n={n},k={k}"] = dict(m_axis=m, n_axis=n,
+                                                     k_axis=k)
+    return out
+
+
+def gloo_cuda_support(torch, mesh) -> dict:
+    """Whether gloo takes card tensors for the two collectives of the
+    sharded code: {op: "accepted" | the error}. Every rank calls it."""
+    import torch.distributed as dist
+    group = mesh.get_group("model")
+    out = {}
+    try:
+        parts = [torch.empty(8, dtype=torch.uint8, device="cuda")
+                 for _ in range(dist.get_world_size(group))]
+        dist.all_gather(parts, torch.full(
+            (8,), mesh.get_local_rank("model"), dtype=torch.uint8,
+            device="cuda"), group=group)
+        check([int(p[0]) for p in parts] == list(range(len(parts))),
+              "gloo all_gather of card tensors gathered other bytes")
+        out["all_gather"] = "accepted"
+    except RuntimeError as e:
+        out["all_gather"] = str(e).splitlines()[0][:200]
+    try:
+        x = torch.full((8,), 1 << 29, dtype=torch.int32, device="cuda")
+        dist.all_reduce(x, group=group)
+        check(int(x[0]) == (1 << 29) * dist.get_world_size(group),
+              "gloo all_reduce of card int32 summed otherwise")
+        out["all_reduce"] = "accepted"
+    except RuntimeError as e:
+        out["all_reduce"] = str(e).splitlines()[0][:200]
+    return out
+
+
+def _shard_matmuls(torch, K, mesh, dev: str) -> tuple:
+    """Phase 16 (a), in each rank: every SHARD_MATMUL_BACKENDS route's
+    sharded float output and int32 core against the single-device call on
+    the card, under every admissible assignment at SHARD_SHAPES. Returns
+    ({shape: {config: cases held}}, the sharded calls' launches)."""
+    import dataclasses
+    from repro_torch.quant import matmul as QM
+    from repro_torch.quant.quantize import abs_max_scale, for_lm, quantize
+    from repro_torch.quant.sharded import (sharded_integer_matmul,
+                                           sharded_quantized_matmul)
+    launches = {key: 0 for key in launch_counts(K)}
+    held = {}
+    shapes = SHARD_SHAPES if dev == "cuda" else SHARD_SMOKE_SHAPES
+    for label, (m, k, n) in shapes.items():
+        gen = torch.Generator(device=dev).manual_seed(m * 7 + k * 3 + n)
+        x = torch.randn((m, k), generator=gen, device=dev)
+        w = torch.randn((k, n), generator=gen, device=dev) * k ** -0.5
+        b = torch.randn((n,), generator=gen, device=dev)
+        sx = abs_max_scale(x, axis=-1, keepdims=True)
+        sw = abs_max_scale(w, axis=0, keepdims=True)
+        x_q = quantize(x, sx).contiguous()
+        w_q = quantize(w, sw).contiguous()
+        cases = shard_cases(label in SHARD_K_ONLY)
+        held[label] = {}
+        for be in SHARD_MATMUL_BACKENDS:
+            cfg0 = for_lm(be)
+            routes = {"fused": cfg0}
+            if QM.get_backend(be).fused is not None:
+                routes["unfused"] = dataclasses.replace(cfg0,
+                                                        fuse_epilogue=False)
+            for route, cfg in routes.items():
+                ref = QM.quantized_matmul(x, w, cfg, b, "relu")
+                ref_int = QM.integer_matmul(x_q, w_q, cfg)
+                K.reset_launch_counts()
+                for case, axes in cases.items():
+                    out = sharded_quantized_matmul(x, w, cfg, mesh, b,
+                                                   "relu", **axes)
+                    check(torch.equal(out, ref), f"shard {label} {be} "
+                          f"{route} {case}: float output differs")
+                    acc = sharded_integer_matmul(x_q, w_q, cfg, mesh, **axes)
+                    check(torch.equal(acc, ref_int), f"shard {label} {be} "
+                          f"{route} {case}: int32 sums differ")
+                for key, c in launch_counts(K).items():
+                    launches[key] += c
+                held[label][f"{be} {route}"] = len(cases)
+                del ref, ref_int, out, acc
+        del x, w, b, x_q, w_q
+        if dev == "cuda":
+            torch.cuda.empty_cache()
+    return held, launches
+
+
+def _shard_engine(torch, K, C, mesh, state, dev: str) -> tuple:
+    """Phase 16 (b), in each rank: phase 7's workload served by
+    ``Engine(mesh=)`` under SHARD_SERVE_BACKENDS; per backend its tokens,
+    each sampled row against phase 7's, each decode step's ms, all-gather
+    ms and bytes. Returns (per backend, the served runs' launches, the
+    plan's sharded leaves)."""
+    import dataclasses
+    from repro_torch.models import transformer_lm as TLM
+    from repro_torch.quant.quantize import for_lm
+    from repro_torch.serve import engine as PE
+    cfg0, reqs = state["cfg"], state["reqs"]
+    params = TLM.init(cfg0, torch.Generator().manual_seed(0), device=dev)
+    launches = {key: 0 for key in launch_counts(K)}
+    out, plan = {}, {}
+    for be in SHARD_SERVE_BACKENDS:
+        cfg = dataclasses.replace(cfg0, quant=for_lm(be))
+        with torch.no_grad():          # warm the backend's tables
+            c = TLM.init_cache(cfg, 1, 16, torch.float32, dev)
+            _, c = TLM.prefill(params, torch.zeros((1, 8), dtype=torch.int64,
+                                                   device=dev), cfg, c)
+            TLM.decode_step(params, torch.zeros((1, 1), dtype=torch.int64,
+                                                device=dev), 8, cfg, c)
+        eng = PE.Engine(cfg, params, slots=state["slots"],
+                        max_len=state["max_len"], mesh=mesh, device=dev)
+        if not plan:
+            plan = {"/".join(path): spec for path, spec in
+                    _spec_paths(eng.plan.param_specs) if spec}
+        for rid, prompt, max_new in reqs:
+            eng.submit(PE.ServeRequest(rid=rid, prompt=prompt,
+                                       max_new=max_new))
+        gather_ms, gather_bytes = [], []
+        K.reset_launch_counts()
+        with ServeRecorder(torch, PE, eng, dev) as rec:
+            timed = eng._decode
+
+            def decode(*args):
+                s0, b0 = C.STATS["seconds"], C.STATS["bytes"]
+                res = timed(*args)
+                gather_ms.append((C.STATS["seconds"] - s0) * 1e3)
+                gather_bytes.append(C.STATS["bytes"] - b0)
+                return res
+
+            eng._decode = decode
+            stats = eng.run()
+        for key, n in launch_counts(K).items():
+            launches[key] += n
+        want = state["rows"][be]
+        check(rec.rows.keys() == want.keys(),
+              f"shard {be}: other (rid, step) rows were sampled")
+        diffs = [float(np.max(np.abs(rec.rows[key] - row)))
+                 for key, row in want.items()]
+        out[be] = {
+            "tokens": {r.rid: list(r.output) for r in eng.completed},
+            "rows": len(diffs),
+            "rows_bitwise": all(np.array_equal(rec.rows[key], row)
+                                for key, row in want.items()),
+            "rows_max_abs_diff": max(diffs),
+            "step_ms": rec.step_ms, "gather_ms": gather_ms,
+            "gather_bytes": gather_bytes,
+            "prefix_hit_rate": stats["prefix_hit_rate"],
+            "waves": stats["waves"], "decode_steps": stats["decode_steps"]}
+        del eng
+        if dev == "cuda":
+            torch.cuda.empty_cache()
+    return out, launches, plan
+
+
+def _spec_paths(tree, prefix=()):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _spec_paths(v, prefix + (str(k),))
+    elif isinstance(tree, list):
+        for i, v in enumerate(tree):
+            yield from _spec_paths(v, prefix + (str(i),))
+    else:
+        yield prefix, tree
+
+
+def shard_rank(rank: int, state: dict, lib, dev: str,
+               t_spawn: float) -> dict:
+    """One rank of phase 16: the card's TF32 off as in phase 1, the built
+    kernel library loaded (never built here), the 2 x 2 mesh, then (a) and
+    (b). Returns host objects only. On the CPU (``lib`` None) the same
+    code runs the plain versions at SHARD_SMOKE_SHAPES: the rehearsal."""
+    t_enter = time.time()
+    import torch
+    from repro_torch.kernels import approx_matmul as K
+    from repro_torch.launch.mesh import make_serving_mesh
+    from repro_torch.parallel import collectives as C
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    probe = {}
+    if dev == "cuda":
+        check(Path(lib).exists(), f"rank {rank}: no built kernel library "
+              f"{lib}")
+        K._lib()
+    else:
+        torch.set_num_threads(1)
+    mesh = make_serving_mesh(SHARD_MESH, ("data", "model"), dev)
+    t0 = time.perf_counter()
+    if dev == "cuda":
+        probe = gloo_cuda_support(torch, mesh)
+        check(set(probe.values()) == {"accepted"}, f"gloo refuses card "
+              f"tensors, and the port stages nothing through host memory: "
+              f"{probe}")
+    matmul, mm_launches = _shard_matmuls(torch, K, mesh, dev)
+    t1 = time.perf_counter()
+    serve, sv_launches, plan = _shard_engine(torch, K, C, mesh, state, dev)
+    t2 = time.perf_counter()
+    return {"rank": rank, "coords": mesh.get_coordinate(), "probe": probe,
+            "matmul": matmul, "serve": serve, "plan": plan,
+            "launches": {f"{e}[{v}]": mm_launches[(e, v)] + sv_launches[(e, v)]
+                         for e, v in mm_launches},
+            "start_s": t_enter - t_spawn, "setup_s": time.time() - t_enter
+            - (t2 - t0), "matmul_s": t1 - t0, "serve_s": t2 - t1,
+            "done": time.time()}
+
+
+def shard_phase(torch, detail, state: dict, dev: str = "cuda") -> tuple:
+    """Phase 16: SHARD_WORLD ranks on the one card over gloo, a SHARD_MESH
+    ('data', 'model') mesh (see the module docstring). Returns the shard
+    line and the ranks' kernel launches, summed. ``dev`` "cpu" rehearses
+    it from the serve phase's CPU state (SHARD_SMOKE_SHAPES)."""
+    from repro_torch.kernels import approx_matmul as K
+    from repro_torch.parallel.collectives import run_world
+    lib = str(K.build()[0]) if dev == "cuda" else None
+    shared = {k: state[k] for k in ("cfg", "reqs", "slots", "max_len",
+                                    "rows")}
+    if dev == "cuda":
+        print(f"  card: {smi_line()}")
+        torch.cuda.empty_cache()
+    t_spawn = time.time()
+    ranks = run_world(shard_rank, SHARD_WORLD, (shared, lib, dev, t_spawn),
+                      backend="gloo", device=dev, timeout_s=SHARD_TIMEOUT)
+    world_s = time.time() - t_spawn
+    r0 = ranks[0]
+    most = {key: max(r[key] for r in ranks)
+            for key in ("start_s", "setup_s", "matmul_s", "serve_s")}
+    print(f"  ranks: entered after {most['start_s']:.1f} s (forked, card "
+          f"selected, process group joined), loaded the kernels and built "
+          f"the mesh in {most['setup_s']:.1f} s, matmuls "
+          f"{most['matmul_s']:.1f} s, served {most['serve_s']:.1f} s; "
+          f"joined {time.time() - max(r['done'] for r in ranks):.1f} s "
+          f"after the last result; {world_s:.1f} s in all")
+    print(f"  gloo on card tensors: {r0['probe']} (the port stages no "
+          "collective through host memory)")
+    for r in ranks:
+        check(r["probe"] == r0["probe"], "the ranks' gloo probes differ")
+    print("  plan (sharded parameter leaves): " + ", ".join(
+        f"{k} {v}" for k, v in r0["plan"].items()))
+    for leaf in ("embed/table", "blocks/0/k0_self/mlp/wg",
+                 "blocks/0/k0_self/mlp/wu", "blocks/0/k0_self/mlp/wd"):
+        check("model" in str(r0["plan"].get(leaf)),
+              f"shard: {leaf} is not sharded over 'model'")
+    shapes = {**SHARD_SHAPES, **SHARD_SMOKE_SHAPES}
+    for label, cfgs in r0["matmul"].items():
+        print(f"  {label} {shapes[label]}: " + ", ".join(
+            f"{c} x{n}" for c, n in cfgs.items())
+            + " assignments bitwise == one device (float and int32)")
+    line = {"world": SHARD_WORLD, "mesh": dict(zip(("data", "model"),
+                                                   SHARD_MESH)),
+            "backend": "gloo", "gloo_cuda": r0["probe"],
+            "matmul_shapes": {k: list(shapes[k]) for k in r0["matmul"]},
+            "world_s": world_s, **most, "serve": {}}
+    for be in SHARD_SERVE_BACKENDS:
+        runs = [r["serve"][be] for r in ranks]
+        check(all(x["tokens"] == runs[0]["tokens"] for x in runs),
+              f"shard {be}: the ranks served other tokens")
+        check(runs[0]["tokens"] == state["tokens"][be],
+              f"shard {be}: the sharded engine's tokens differ from the "
+              "single-device serving's (phase 7)")
+        bitwise = all(x["rows_bitwise"] for x in runs)
+        worst = max(x["rows_max_abs_diff"] for x in runs)
+        if be in CUDA_BACKENDS:
+            check(bitwise, f"shard {be}: sampled rows differ from phase 7's "
+                  f"(max abs {worst})")
+        else:
+            check(worst <= SHARD_BF16_ATOL, f"shard {be}: sampled rows "
+                  f"{worst} from phase 7's, over {SHARD_BF16_ATOL}")
+        step = statistics.median(runs[0]["step_ms"])
+        gms = statistics.median(runs[0]["gather_ms"])
+        gb = statistics.median(runs[0]["gather_bytes"])
+        line["serve"][be] = {
+            "step_ms_median": step,
+            "step_ms_median_by_rank": [statistics.median(x["step_ms"])
+                                       for x in runs],
+            "gather_ms_median": gms, "gather_bytes_median": gb,
+            "single_device_step_ms": state["step_ms"][be],
+            "rows": runs[0]["rows"], "rows_bitwise": bitwise,
+            "rows_max_abs_diff": worst,
+            "decode_steps": runs[0]["decode_steps"],
+            "prefix_hit_rate": runs[0]["prefix_hit_rate"]}
+        print(f"  serve {be:22s} 4 ranks: tokens == phase 7's, ranks agree, "
+              f"{runs[0]['rows']} sampled rows "
+              + ("bitwise" if bitwise else f"within {worst:.3g}")
+              + f"; decode step {step:.3f} ms (rank medians "
+              + ", ".join(f"{v:.3f}" for v in
+                          line["serve"][be]["step_ms_median_by_rank"])
+              + f"; one device {state['step_ms'][be]:.3f} ms), all-gather "
+              f"{gms:.3f} ms, {gb / 2 ** 20:.2f} MiB gathered a step",
+              flush=True)
+        detail[f"shard_step_ms {be}"] = runs[0]["step_ms"]
+        detail[f"shard_gather_ms {be}"] = runs[0]["gather_ms"]
+    launches = {key: 0 for key in launch_counts(K)}
+    for r in ranks:
+        for (e, v) in launches:
+            launches[(e, v)] += r["launches"][f"{e}[{v}]"]
+    print("  launches by the ranks: " + ", ".join(
+        f"{e}[{v}] {n}" for (e, v), n in launches.items()))
+    line["launches"] = {f"{e}[{v}]": n for (e, v), n in launches.items()}
+    return line, launches
 
 
 # ---------------------------------------------------------------------------
@@ -3835,6 +4206,9 @@ EXAMPLES = (
     ("lm_train", "repro_torch.examples.lm_train",
      ("--model-scale", "100m", "--crash", "--steps", str(EXAMPLE_STEPS),
       "--ckpt-dir", str(ROOT / "build" / "lm_train_example"))),
+    ("serve_mesh", "torch.distributed.run",
+     ("--standalone", "--nproc-per-node", "2", "-m", "repro_torch.serve",
+      "--mesh", "data,model", "--dist-backend", "gloo", "--requests", "4")),
 )
 EXAMPLE_TIMEOUT = 600
 EXAMPLES_OUT = ROOT / "build" / "examples"
@@ -3953,6 +4327,10 @@ def examples_phase(torch, K) -> tuple:
           "serve_lm --spec-k 4 printed no speculation summary")
     check("backend=approx_deficit_pallas" in outs["serve_cli"][1],
           "python -m repro_torch.serve printed no summary")
+    check("mesh {'data': 1, 'model': 2} over gloo" in outs["serve_mesh"][1]
+          and "backend=bf16" in outs["serve_mesh"][1],
+          "python -m torch.distributed.run ... -m repro_torch.serve --mesh "
+          "data,model printed no sharded serving summary")
     check("paper Table 5" in outs["mnist_train"][1]
           and "| approx_rank1_pallas |" in outs["mnist_train"][1]
           and "| approx_rank1_pallas |" in outs["denoise"][1],

@@ -16,6 +16,11 @@ the same workload. Reported per backend:
                approx_stage1 draft) emits this backend's sequential tokens
   spec_accept  mean accepted drafts per verify pass in that serve
 
+On the card the draft runs through approx_stage1's CUDA twin,
+approx_stage1_pallas (``spec_config``): its products, and so its drafts,
+are approx_stage1's bit for bit, at a fraction of the plain version's
+host-bound time.
+
 Params are randomly initialized: the suite measures divergence onset on the
 serving path, not task quality (that is the ``lm`` suite's job).
 """
@@ -38,6 +43,14 @@ from repro_torch.serve import Engine, ServeRequest, SpecConfig
 # requests admitted after the first retirement hit the prefix cache
 SHARED_PREFIX = 8
 SPEC = SpecConfig(k=4, draft_backend="approx_stage1")
+CUDA_DRAFT = "approx_stage1_pallas"     # bitwise approx_stage1
+
+
+def spec_config(device) -> SpecConfig:
+    """SPEC, its draft on the CUDA twin of approx_stage1 on the card."""
+    if torch.device(device).type == "cuda":
+        return dataclasses.replace(SPEC, draft_backend=CUDA_DRAFT)
+    return SPEC
 
 
 def workload(vocab: int, smoke: bool, seed: int):
@@ -115,7 +128,8 @@ def serve_rows(cfg0, params, reqs, slots: int, max_len: int,
         solo, _ = serve_outputs(cfg, params, [probe], slots, max_len,
                                 device=device)
         spec_outs, spec_stats = serve_outputs(cfg, params, reqs, slots,
-                                              max_len, spec=SPEC,
+                                              max_len,
+                                              spec=spec_config(device),
                                               device=device)
         match_pct, prefix = _parity(outs, ref)
         rows.append({

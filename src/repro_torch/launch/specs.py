@@ -6,7 +6,9 @@ quantized moments stay abstract.
 Each tree has the keys, shapes and dtypes of the JAX package's
 ``ShapeDtypeStruct`` trees for the same cell. The JAX functions also take
 a ``Mesh`` and sharding rules and attach shardings; the port's take
-neither until its sharding slice (ROADMAP.md queue A, item 20).
+neither until training over a mesh (ROADMAP.md queue A, item 23); the
+serving engine's shardings are ``TLM.cache_specs`` and
+``nn.module.param_specs``.
 """
 from __future__ import annotations
 

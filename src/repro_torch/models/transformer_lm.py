@@ -288,6 +288,59 @@ def _kind_cache(cfg: ArchConfig, kind: str, batch: int, max_len: int,
     return A.init_cache(cfg.attn_cfg(kind), batch, max_len, dtype, dev)
 
 
+def cache_logical(cfg: ArchConfig):
+    """Logical axis names per ``init_cache`` leaf: the same tree with a
+    tuple of names per leaf. Batch rows map to 'data', (KV) heads to
+    'model', positions and state feature dims stay replicated; the stacked
+    group dim is 'layers'. The JAX package's ``cache_logical``."""
+    def kind_axes(kind):
+        if kind == "rwkv":
+            return {"S": ("batch", "heads", None, None),
+                    "xprev": ("batch", None),
+                    "cm_xprev": ("batch", None)}
+        if kind == "hymba":
+            return {"attn": A.cache_logical(cfg.attn_cfg("hymba_attn")),
+                    "h": ("batch", None, None),
+                    "conv": ("batch", None, None)}
+        if kind == "cross":
+            return {}
+        return A.cache_logical(cfg.attn_cfg(kind))
+
+    def layers(tree):
+        if isinstance(tree, dict):
+            return {k: layers(v) for k, v in tree.items()}
+        return ("layers",) + tree
+
+    return {"blocks": [layers({f"k{i}_{kind}": kind_axes(kind)
+                               for i, kind in enumerate(kinds)})
+                       for _, kinds in cfg.blocks()]}
+
+
+def cache_specs(cfg: ArchConfig, cache, rules, mesh):
+    """The storage spec of every leaf of an ``init_cache`` or
+    ``init_page_store`` tree (the same tree, a spec tuple per leaf), with
+    the mesh axes that do not divide their dim pruned. The batch dim of a
+    page store is its page dim, so the same rules shard a serving pool
+    over slots and a page store over pages. A leaf is anything with a
+    ``shape``."""
+    from repro_torch.parallel.sharding import prune_spec
+
+    def walk(node, logical):
+        if isinstance(node, dict):
+            if set(node) != set(logical):
+                raise ValueError("cache_logical drifted from init_cache: "
+                                 f"{sorted(node)} != {sorted(logical)}")
+            return {k: walk(node[k], logical[k]) for k in node}
+        if isinstance(node, (list, tuple)):
+            if len(node) != len(logical):
+                raise ValueError("cache_logical drifted from init_cache")
+            return [walk(n, lg) for n, lg in zip(node, logical)]
+        return prune_spec(tuple(node.shape), rules.spec(logical, mesh),
+                          mesh)
+
+    return walk(cache, cache_logical(cfg))
+
+
 def map_leaves(fn, *trees):
     """``fn`` over the tensor leaves of same-shaped trees of dicts and
     lists (an empty dict, a cross layer's cache, maps to itself)."""

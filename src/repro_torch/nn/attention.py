@@ -155,6 +155,17 @@ def init_cache(cfg: AttnConfig, batch: int, max_len: int,
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
+def cache_logical(cfg: AttnConfig):
+    """Logical axis names per ``init_cache`` leaf (the same keys, a tuple
+    of names per leaf): batch rows over 'data', KV heads over 'model',
+    positions replicated; MLA's compressed dim by 'kv_lora'."""
+    if cfg.is_mla:
+        return {"ckv": ("batch", None, "kv_lora"),
+                "kpe": ("batch", None, None)}
+    return {"k": ("batch", None, "kv_heads", None),
+            "v": ("batch", None, "kv_heads", None)}
+
+
 def is_ring(cfg: AttnConfig, slots: int) -> bool:
     """Whether a cache of ``slots`` positions is a ring buffer: a windowed
     layer whose buffer holds the whole window."""

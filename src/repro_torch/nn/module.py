@@ -4,8 +4,9 @@ A model is described by a tree of ``ParamDesc`` leaves (shape + logical
 axes + initializer) in nested dicts and lists, as in the JAX package;
 ``init_params`` turns it into the same tree of tensors, with the same keys
 and layouts, and ``stack`` prepends a layer axis for the stacked layer
-groups of the transformer LM. (The JAX package also derives sharding specs
-from the descriptors; that belongs to the port's sharding slice.)
+groups of the transformer LM. ``param_specs`` / ``param_shardings`` derive
+each leaf's sharding spec over a mesh from its logical axes, as the JAX
+package does (``parallel.sharding``).
 """
 from __future__ import annotations
 
@@ -150,6 +151,24 @@ def stack(tree, n: int, logical: str = "layers"):
     stacked (L, d, f) weight draws at scale (L * d) ** -0.5."""
     return tree_map(lambda d: dataclasses.replace(
         d, shape=(n,) + d.shape, logical=(logical,) + d.logical), tree)
+
+
+def param_specs(tree, rules, mesh):
+    """Each leaf's spec over ``mesh`` by ``rules`` (``ShardingRules``),
+    from its logical axes: the JAX package's ``param_specs``."""
+    return tree_map(lambda d: rules.spec(d.logical, mesh), tree)
+
+
+def param_shardings(tree, rules, mesh):
+    """Each leaf's storage spec over ``mesh``: its ``param_specs`` entry
+    with the axes that do not divide their dim dropped (``prune_spec``).
+    The JAX package's ``param_shardings`` wraps the unpruned spec in a
+    ``NamedSharding`` and its serving engine prunes it; the port has no
+    sharding object, and its engine stores each leaf by this spec."""
+    from repro_torch.parallel.sharding import prune_spec
+    return tree_map(lambda d: prune_spec(d.shape, rules.spec(d.logical,
+                                                             mesh), mesh),
+                    tree)
 
 
 def n_params(tree) -> int:

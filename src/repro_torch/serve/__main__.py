@@ -5,6 +5,8 @@
     python -m repro_torch.serve --sampling top_k --top-k 8
     python -m repro_torch.serve --arch rwkv6-3b [--device cpu --reduced]
     python -m repro_torch.serve --spec-k 4 --draft-backend approx_stage1
+    python -m torch.distributed.run --standalone --nproc-per-node 4 \
+        -m repro_torch.serve --mesh data,model --dist-backend gloo
 
 The port's counterpart of the JAX package's ``examples/serve_lm.py``: a
 mixed-length request queue is served through the fixed-slot KV pool, with
@@ -19,9 +21,16 @@ than its ring (hymba's reduced window is 8). It runs on the card unless
 musicgen-large`` (stub embeddings) exit with its ``ValueError`` before any
 weight is drawn. ``--spec-k K`` serves with draft-model speculation
 (``serve/speculative.py``): the served tokens are bitwise those of
-``--spec-k 0``, only the number of passes changes. The JAX example's
-``--mesh`` waits for the port's sharding slice (ROADMAP.md queue A, item
-20).
+``--spec-k 0``, only the number of passes changes.
+
+``--mesh data,model`` serves over a ('data', 'model') ``DeviceMesh`` of
+the ranks that ``python -m torch.distributed.run`` starts, one rank per
+mesh position, each running this script (``Engine(mesh=)``); the backend
+of their process group is ``--dist-backend``, named explicitly: ``nccl``
+takes one rank per card, ``gloo`` lets several ranks share one card (or
+the CPU). Without a process group to join, ``--mesh`` exits with an error
+rather than serving unsharded. Rank 0 prints; every rank returns the
+stats.
 """
 from __future__ import annotations
 
@@ -43,8 +52,9 @@ from repro_torch.serve.engine import check_servable
 def parse_args(argv=None):
     ap = argparse.ArgumentParser(
         prog="python -m repro_torch.serve",
-        epilog="Serving over a device mesh (the JAX example's --mesh) "
-        "waits for the port's sharding slice (ROADMAP.md queue A, item 20).")
+        epilog="Sharded serving: python -m torch.distributed.run "
+        "--standalone --nproc-per-node N -m repro_torch.serve --mesh "
+        "data,model --dist-backend {nccl,gloo}")
     ap.add_argument("--arch", default="smollm-135m",
                     help="architecture (configs/registry.py)")
     ap.add_argument("--reduced", action="store_true",
@@ -80,13 +90,49 @@ def parse_args(argv=None):
                     choices=["bf16", *list_backends()],
                     help="backend the draft model proposes on (same "
                          "params)")
+    ap.add_argument("--mesh", default=None, metavar="AXES",
+                    help="serve over a mesh with these axis names (e.g. "
+                         "data,model) of the torch.distributed.run ranks, "
+                         "the world split as evenly as it goes, the larger "
+                         "factor last")
+    ap.add_argument("--dist-backend", default=None,
+                    choices=["nccl", "gloo"],
+                    help="the process group's backend (required with "
+                         "--mesh)")
     return ap.parse_args(argv)
+
+
+def join_mesh(args):
+    """The mesh of ``--mesh`` over the ranks of ``torch.distributed.run``;
+    exits with an error where there is no process group to join."""
+    from repro_torch.launch.mesh import init_distributed, make_serving_mesh
+    if args.dist_backend is None:
+        raise SystemExit("--mesh needs --dist-backend nccl|gloo")
+    dev = torch.device(args.device).type
+    try:
+        init_distributed(args.dist_backend, dev)
+    except (RuntimeError, ValueError) as e:
+        raise SystemExit(f"--mesh: {e}") from None
+    return make_serving_mesh(None, tuple(args.mesh.split(",")), dev)
 
 
 def main(argv=None) -> dict:
     """Serve the workload; returns the engine's stats with the served
     ``tokens`` ({rid: [token, ...]})."""
     args = parse_args(argv)
+    mesh = join_mesh(args) if args.mesh else None
+    try:
+        return serve(args, mesh)
+    finally:
+        if mesh is not None:
+            import torch.distributed as dist
+            dist.destroy_process_group()
+
+
+def serve(args, mesh) -> dict:
+    import torch.distributed as dist
+    say = (print if mesh is None or dist.get_rank() == 0
+           else (lambda *a, **k: None))
     if args.reduced:
         cfg = registry.reduced(args.arch, n_layers=4, d_model=128, d_ff=256)
     else:
@@ -97,14 +143,14 @@ def main(argv=None) -> dict:
                       device=args.device)
     scfg = SamplingConfig(kind=args.sampling, temperature=args.temperature,
                           top_k=args.top_k, seed=args.seed)
-    stream = ((lambda rid, tok: print(f"  rid {rid} -> {tok}"))
+    stream = ((lambda rid, tok: say(f"  rid {rid} -> {tok}"))
               if args.stream else None)
     spec = (SpecConfig(k=args.spec_k, draft_backend=args.draft_backend)
             if args.spec_k > 0 else None)
     eng = Engine(cfg, params, slots=args.slots, max_len=64,
                  admission=args.policy, stream=stream,
                  prefix_caching=not args.no_prefix_cache, spec=spec,
-                 device=args.device)
+                 mesh=mesh, device=args.device)
     rng = np.random.default_rng(args.seed)
     shared = rng.integers(0, cfg.vocab, args.shared_prefix).astype(np.int32)
     # a windowed ring takes a prompt of at most its window
@@ -124,29 +170,32 @@ def main(argv=None) -> dict:
     dev = eng.device
     name = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
             else "cpu")
-    print(f"{cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
-          f"vocab {cfg.vocab}, on {name}")
+    say(f"{cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"vocab {cfg.vocab}, on {name}" + (
+            "" if mesh is None else
+            f", mesh {dict(zip(mesh.mesh_dim_names, mesh.shape))} over "
+            f"{dist.get_backend()}"))
     for r in sorted(eng.completed, key=lambda r: r.rid):
         ttft = (f"{r.timing.ttft_s * 1e3:7.1f} ms"
                 if r.timing.ttft_s is not None else "      —")
-        print(f"rid {r.rid}: {len(r.output):2d} tokens ({r.finish_reason}), "
-              f"ttft {ttft}")
-    print(f"backend={args.backend} policy={args.policy}: "
-          f"{stats['requests']} requests in {stats['decode_steps']} decode "
-          f"steps / {stats['waves']} admission waves, {stats['new_tokens']} "
-          f"tokens, {stats['tok_per_s']:.1f} tok/s, "
-          f"occupancy {stats['occupancy']:.2f}, "
-          f"prefix hit rate {stats['prefix_hit_rate']:.2f} "
-          f"({stats['prefix_hit_tokens']} of "
-          f"{stats['prefix_hit_tokens'] + stats['prefill_tokens']} prompt "
-          f"tokens from cache)")
+        say(f"rid {r.rid}: {len(r.output):2d} tokens ({r.finish_reason}), "
+            f"ttft {ttft}")
+    say(f"backend={args.backend} policy={args.policy}: "
+        f"{stats['requests']} requests in {stats['decode_steps']} decode "
+        f"steps / {stats['waves']} admission waves, {stats['new_tokens']} "
+        f"tokens, {stats['tok_per_s']:.1f} tok/s, "
+        f"occupancy {stats['occupancy']:.2f}, "
+        f"prefix hit rate {stats['prefix_hit_rate']:.2f} "
+        f"({stats['prefix_hit_tokens']} of "
+        f"{stats['prefix_hit_tokens'] + stats['prefill_tokens']} prompt "
+        f"tokens from cache)")
     if spec is not None:
-        print(f"speculative K={args.spec_k} draft={args.draft_backend}: "
-              f"{stats['spec_passes']} verify passes, "
-              f"{stats['spec_committed']} committed "
-              f"({stats['spec_accept_mean']:.2f} drafts accepted/pass, "
-              f"hist {stats['spec_accept_hist']}) — tokens bitwise "
-              f"identical to --spec-k 0")
+        say(f"speculative K={args.spec_k} draft={args.draft_backend}: "
+            f"{stats['spec_passes']} verify passes, "
+            f"{stats['spec_committed']} committed "
+            f"({stats['spec_accept_mean']:.2f} drafts accepted/pass, "
+            f"hist {stats['spec_accept_hist']}) — tokens bitwise "
+            f"identical to --spec-k 0")
     return {**stats, "tokens": {r.rid: [int(t) for t in r.output]
                                 for r in eng.completed}}
 

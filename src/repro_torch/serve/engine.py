@@ -41,12 +41,27 @@ K-1 tokens per slot, the target scores the (slots, K) window in one
 target's own token and erases the rejected KV from both pools. The tokens
 served are those of sequential decode.
 
+Over a mesh (``mesh=``, a ``DeviceMesh`` with 'data' and 'model' axes,
+one rank per position) every rank runs this engine, SPMD: admission, the
+prefix cache's index and sampling run identically on every rank, and a
+cheap check gathers each step's emitted tokens and raises if the ranks
+disagree. Storage is sharded (``MeshPlan``): every rank holds its shards
+of the params (``nn.module.param_shardings``: FSDP over 'data',
+tensor-parallel over 'model') and of the slot pool and page store
+(``TLM.cache_specs``: slot rows or pages over 'data', KV heads over
+'model'). Each step all-gathers the params in full, gathers the pool over
+its 'model' axes with the slot dim kept local, runs the unchanged
+``TLM.decode_step`` / ``verify_step`` on the rank's slot rows, slices the
+new cache shard back out, and all-gathers the logits rows so that every
+rank samples the same tokens. Prefill of one request runs on every rank
+(the reference's is replicated). Only bytes cross ranks; nothing adds
+floats across them. A mesh of one position serves unsharded.
+
 There is no counterpart of the reference's ``compiled_fns`` (its jitted
-prefill/decode cache): PyTorch runs eagerly. ``mesh=`` (the sharded engine)
-is a later slice of the port and raises ``NotImplementedError``. The
-engine serves token models without encoder inputs, as the reference's
-does: a config with stub embeddings or cross-attention layers raises
-``ValueError`` (``check_servable``).
+prefill/decode cache): PyTorch runs eagerly. The engine serves token
+models without encoder inputs, as the reference's does: a config with
+stub embeddings or cross-attention layers raises ``ValueError``
+(``check_servable``).
 """
 from __future__ import annotations
 
@@ -59,7 +74,11 @@ import torch
 
 from repro_torch.models import transformer_lm as TLM
 from repro_torch.models.transformer_lm import ArchConfig
-from repro_torch.nn.module import resolve_device
+from repro_torch.nn.module import param_shardings, resolve_device
+from repro_torch.parallel import collectives as C
+from repro_torch.parallel.sharding import (DEFAULT_RULES, ShardingRules,
+                                           axis_sizes, entry_axes,
+                                           mesh_positions, prune_spec)
 from repro_torch.serve.metrics import RequestTiming, summarize
 from repro_torch.serve.paging import PrefixCache
 from repro_torch.serve.sampling import GREEDY, SamplingConfig, sample_token
@@ -113,11 +132,272 @@ def check_servable(cfg: ArchConfig) -> None:
             "passes no encoder states to them")
 
 
+# ---------------------------------------------------------------------------
+# Engine over a mesh: sharded storage, the single-device model per rank
+# ---------------------------------------------------------------------------
+
+def map_specs(fn, tree, specs, *more):
+    """``fn(leaf, spec, *more_leaves)`` over the tensor leaves of ``tree``
+    and the spec tuples of ``specs`` (the same dicts and lists)."""
+    if isinstance(tree, dict):
+        return {k: map_specs(fn, tree[k], specs[k], *(m[k] for m in more))
+                for k in tree}
+    if isinstance(tree, list):
+        return [map_specs(fn, t, s, *m)
+                for t, s, *m in zip(tree, specs, *more)]
+    return fn(tree, specs, *more)
+
+
+def _position(mesh, axes) -> Tuple[int, int]:
+    """This rank's combined index over ``axes`` (major first), and their
+    combined size."""
+    sizes = axis_sizes(mesh)
+    idx, n = 0, 1
+    for a in axes:
+        idx = idx * sizes[a] + mesh.get_local_rank(a)
+        n *= sizes[a]
+    return idx, n
+
+
+def slice_leaf(x, spec, mesh, skip_dim=None):
+    """This rank's shard of the full ``x`` by ``spec`` (every sharded dim
+    but ``skip_dim``): a view."""
+    for d, entry in enumerate(spec):
+        if entry is None or d == skip_dim:
+            continue
+        idx, n = _position(mesh, entry_axes(entry))
+        loc = x.shape[d] // n
+        x = x.narrow(d, idx * loc, loc)
+    return x
+
+
+def _gathers(spec, skip_dim=None) -> List[Tuple[int, str]]:
+    """The (dim, mesh axis) all-gathers that rebuild a leaf sharded by
+    ``spec`` (every sharded dim but ``skip_dim``), in order: dims
+    ascending, the minor mesh axis first within a dim, so that blocks land
+    in place."""
+    return [(d, ax) for d, entry in enumerate(spec)
+            if entry is not None and d != skip_dim
+            for ax in reversed(entry_axes(entry))]
+
+
+def gather_leaves(xs, specs, mesh, skip_dim=None) -> list:
+    """The inverse of ``slice_leaf`` over many leaves: all-gather each
+    shard back to the full tensor along every sharded dim but
+    ``skip_dim``. Byte movement, coalesced: each round packs every leaf's
+    next gather over one axis into one collective."""
+    xs = list(xs)
+    plans = [_gathers(s, skip_dim) for s in specs]
+    stage = 0
+    while True:
+        groups: Dict[str, List[int]] = {}
+        for i, plan in enumerate(plans):
+            if stage < len(plan):
+                groups.setdefault(plan[stage][1], []).append(i)
+        if not groups:
+            return xs
+        for axis in sorted(groups):
+            idx = groups[axis]
+            parts = C.all_gather_many([xs[i] for i in idx],
+                                      mesh.get_group(axis))
+            for i, ps in zip(idx, parts):
+                xs[i] = torch.cat(ps, dim=plans[i][stage][0])
+        stage += 1
+
+
+def gather_tree(tree, specs, mesh, skip_dim=None):
+    """``gather_leaves`` over a tree of leaves and its spec tree."""
+    leaves, flat = [], []
+    map_specs(lambda t, s: (leaves.append(t), flat.append(s)), tree, specs)
+    it = iter(gather_leaves(leaves, flat, mesh, skip_dim))
+    return map_specs(lambda t, s: next(it), tree, specs)
+
+
+def gather_stack(x, mesh, axes):
+    """Every position's ``x`` over ``axes``, stacked on a new leading dim
+    in combined index order (major axis first)."""
+    out = x[None]
+    for ax in reversed(axes):
+        out = torch.cat(C.all_gather_bytes(out, mesh.get_group(ax)))
+    return out
+
+
+def _sharded(spec, skip_dim=None) -> bool:
+    return any(e is not None and d != skip_dim for d, e in enumerate(spec))
+
+
+class MeshPlan:
+    """How one config's params, slot pool and page store are stored and run
+    over ``mesh``: the storage specs (``param_shardings``,
+    ``TLM.cache_specs``), this rank's slot rows and pages, and the
+    gather / compute / slice of each call. Every method is collective:
+    every rank of the mesh calls it, in the same order."""
+
+    def __init__(self, cfg: ArchConfig, mesh, rules: ShardingRules, *,
+                 slots: int, max_len: int, cache_dtype, device,
+                 n_pages: int = 0, page_size: int = 0):
+        if not hasattr(mesh, "get_group"):
+            raise TypeError(
+                f"a mesh of {mesh_positions(mesh)} positions must be a "
+                "torch.distributed DeviceMesh (launch.mesh."
+                "make_serving_mesh), one rank per position")
+        self.cfg, self.mesh, self.rules = cfg, mesh, rules
+        self.device = device
+        self.param_specs = param_shardings(TLM.descs(cfg), rules, mesh)
+        meta = torch.device("meta")
+        self._pool_meta = TLM.init_cache(cfg, slots, max_len, cache_dtype,
+                                         meta)
+        self.pool_specs = TLM.cache_specs(cfg, self._pool_meta, rules, mesh)
+        self.slot_axes, self.slot0, self.local_slots = self._rows(slots)
+        self.page_size = page_size
+        if n_pages:
+            self._pages_meta = TLM.init_page_store(cfg, n_pages, page_size,
+                                                   cache_dtype, meta)
+            self.page_specs = TLM.cache_specs(cfg, self._pages_meta, rules,
+                                              mesh)
+            self.page_axes, self.page0, self.local_pages = self._rows(
+                n_pages)
+
+    def _rows(self, n: int) -> Tuple[Tuple[str, ...], int, int]:
+        """The mesh axes the batch dim of ``n`` rows goes over (none where
+        they do not divide it: replicated), this rank's first row and its
+        row count."""
+        spec = prune_spec((n,), self.rules.spec(("batch",), self.mesh),
+                          self.mesh)
+        axes = entry_axes(spec[0]) if spec else ()
+        idx, parts = _position(self.mesh, axes)
+        return axes, idx * (n // parts), n // parts
+
+    # ---- storage ---------------------------------------------------------
+    def _zeros(self, meta, specs):
+        return map_specs(lambda t, s: torch.zeros(
+            slice_leaf(t, s, self.mesh).shape, dtype=t.dtype,
+            device=self.device), meta, specs)
+
+    def shard_params(self, params):
+        """This rank's shards of the full ``params`` (own storage)."""
+        return map_specs(lambda t, s: slice_leaf(t, s, self.mesh).clone(),
+                         params, self.param_specs)
+
+    def full_params(self, params):
+        return gather_tree(params, self.param_specs, self.mesh)
+
+    def init_pool(self):
+        return self._zeros(self._pool_meta, self.pool_specs)
+
+    def init_pages(self):
+        return self._zeros(self._pages_meta, self.page_specs)
+
+    def full_pool(self, pool):
+        """The whole pool, every rank's shards gathered (for checks)."""
+        return gather_tree(pool, self.pool_specs, self.mesh)
+
+    # ---- the model on this rank's rows -----------------------------------
+    def _local(self, a):
+        return a[self.slot0:self.slot0 + self.local_slots]
+
+    def forward(self, fn, params, pool, tok, pos):
+        """``fn`` (``TLM.decode_step`` or ``verify_step``) over this rank's
+        slot rows of ``tok`` / ``pos`` (full (slots, ...) on every rank):
+        params gathered whole, each pool leaf gathered over its 'model'
+        axes (its slot dim kept local), the new cache shard sliced back
+        into ``pool``; returns the logits of every slot, gathered."""
+        cache = gather_tree(pool, self.pool_specs, self.mesh, skip_dim=1)
+        logits, cache = fn(self.full_params(params), self._local(tok),
+                           self._local(pos), self.cfg, cache)
+
+        def back(t, s, new):
+            if _sharded(s, 1):
+                t.copy_(slice_leaf(new, s, self.mesh, skip_dim=1))
+        map_specs(back, pool, self.pool_specs, cache)
+        for ax in reversed(self.slot_axes):
+            logits = C.all_gather_dim(logits, self.mesh, ax, 0)
+        return logits
+
+    def decode(self, params, pool, tok, pos):
+        """-> (every slot's logits, pool), as ``TLM.decode_step``."""
+        return self.forward(TLM.decode_step, params, pool, tok, pos), pool
+
+    def verify(self, params, pool, window, pos):
+        """-> (every slot's logits, pool), as ``TLM.verify_step``."""
+        return self.forward(TLM.verify_step, params, pool, window,
+                            pos), pool
+
+    def prefill(self, params, toks, fresh, lengths, off):
+        """A batch-1 prefill on every rank (replicated) into the full
+        ``fresh`` cache."""
+        return TLM.prefill(self.full_params(params), toks, self.cfg, fresh,
+                           lengths=lengths, pos_offset=off)
+
+    def write_slot(self, pool, fresh, slot: int):
+        """Copy the full batch-1 ``fresh`` into row ``slot`` of the pool,
+        on the ranks that hold that row (their head shard)."""
+        if not self.slot0 <= slot < self.slot0 + self.local_slots:
+            return pool
+
+        def leaf(p, s, o):
+            p[:, slot - self.slot0] = slice_leaf(o, s, self.mesh,
+                                                 skip_dim=1)[:, 0]
+        map_specs(leaf, pool, self.pool_specs, fresh)
+        return pool
+
+    def rollback(self, pool, start, stop):
+        TLM.rollback_positions(pool, self._local(np.asarray(start)),
+                               self._local(np.asarray(stop)))
+        return pool
+
+    # ---- the page store ----------------------------------------------------
+    def gather_pages(self, fresh, pages, chain):
+        """The COW copy of a prefix hit: the chain's pages, wherever they
+        live, gathered (pages over their 'data' axes, heads over 'model')
+        into positions [0, n * page_size) of the full batch-1 ``fresh``."""
+        ids = list(chain)
+
+        def leaf(pg, s):
+            sel = pg.new_zeros((pg.shape[0], len(ids), *pg.shape[2:]))
+            for i, p in enumerate(ids):
+                if self.page0 <= p < self.page0 + self.local_pages:
+                    sel[:, i] = pg[:, p - self.page0]
+            if self.page_axes:
+                stacked = gather_stack(sel, self.mesh, self.page_axes)
+                sel = torch.stack([stacked[p // self.local_pages][:, i]
+                                   for i, p in enumerate(ids)], dim=1)
+            return gather_leaves([sel], [s], self.mesh, skip_dim=1)[0]
+        got = map_specs(leaf, pages, self.page_specs)
+        return TLM.gather_pages(fresh, got, list(range(len(ids))))
+
+    def store_pages(self, pages, pool, slot: int, page_ids, page_indices):
+        """Freeze pages out of row ``slot``: the ranks holding the row send
+        its segments over the pool's 'data' axes, and each rank writes the
+        pages it holds (its head shard)."""
+        ps = self.page_size
+        holder = self.slot0 <= slot < self.slot0 + self.local_slots
+
+        def leaf(pg, s, pl):
+            row = pl[:, slot - self.slot0] if holder else \
+                pl.new_zeros((pl.shape[0], *pl.shape[2:]))
+            segs = torch.stack([row[:, i * ps:(i + 1) * ps]
+                                for i in page_indices], dim=1)
+            if self.slot_axes:
+                segs = gather_stack(segs, self.mesh, self.slot_axes)[
+                    slot // self.local_slots]
+            for j, p in enumerate(page_ids):
+                if self.page0 <= p < self.page0 + self.local_pages:
+                    pg[:, p - self.page0] = segs[:, j].to(pg.dtype)
+        map_specs(leaf, pages, self.page_specs, pool)
+        return pages
+
+
 class Engine:
-    """Single-device continuous-batching server for token LMs.
+    """Continuous-batching server for token LMs, on one device or over a
+    mesh.
 
     ``params`` must live on ``device`` (the card unless the caller asks for
-    the CPU); the KV pool and the page store are allocated there."""
+    the CPU); the KV pool and the page store are allocated there. With
+    ``mesh`` (a ``DeviceMesh`` of more than one position) every rank
+    constructs the engine from the same full ``params`` and keeps only its
+    shards (see the module docstring); ``rules`` map the logical axes to
+    the mesh's."""
 
     def __init__(self, cfg: ArchConfig, params, *, slots: int = 4,
                  max_len: int = 256, eos_id: Optional[int] = None,
@@ -126,55 +406,76 @@ class Engine:
                  cache_dtype=torch.float32,
                  prefix_caching: bool = True, page_size: int = 8,
                  cache_pages: Optional[int] = None,
-                 mesh=None, spec=None, draft_params=None, device="cuda"):
+                 mesh=None, spec=None, draft_params=None, device="cuda",
+                 rules: ShardingRules = DEFAULT_RULES):
         check_servable(cfg)
-        if mesh is not None:
-            raise NotImplementedError(
-                "Engine(mesh=...) — the sharded engine — is not ported yet: "
-                "ROADMAP.md queue A, item 20")
         self.device = resolve_device(device)
-        # ---- draft-model speculation (serve/speculative.py); built first,
-        # so that a layout it cannot roll back is refused before any
-        # allocation
-        self.speculator = None
         if spec is not None:
-            from repro_torch.serve.speculative import Speculator
-            self.speculator = Speculator(
-                spec, cfg, params, draft_params, slots=slots,
-                max_len=max_len, cache_dtype=cache_dtype,
-                device=self.device)
-            TLM.map_leaves(self._check_device, self.speculator.params)
+            # refuse a layout the verify pass cannot roll back before any
+            # allocation
+            TLM.require_position_indexed(cfg)
+            TLM.require_position_indexed(spec.draft_arch(cfg))
         TLM.map_leaves(self._check_device, params)
-        self.cfg, self.params = cfg, params
+        if draft_params is not None:
+            TLM.map_leaves(self._check_device, draft_params)
+        self.cfg = cfg
         self.slots, self.max_len, self.eos_id = slots, max_len, eos_id
         self.stream = stream
         self.sched = SlotScheduler(slots, admission)
         self._cache_dtype = cache_dtype
-        self.pool = TLM.init_cache(cfg, slots, max_len, cache_dtype,
-                                   self.device)
+        # a mesh of one position adds nothing: serve unsharded
+        self.mesh = mesh if mesh_positions(mesh) > 1 else None
+        self.page_size = page_size
+        self.prefix: Optional[PrefixCache] = None
+        n_pages = 0
+        if prefix_caching and padded_prefill_ok(cfg) \
+                and 0 < page_size <= max_len:
+            n_pages = cache_pages or 2 * slots * (max_len // page_size)
+            self.prefix = PrefixCache(page_size, n_pages)
+        self.plan: Optional[MeshPlan] = None
+        if self.mesh is not None:
+            self.plan = MeshPlan(cfg, self.mesh, rules, slots=slots,
+                                 max_len=max_len, cache_dtype=cache_dtype,
+                                 device=self.device, n_pages=n_pages,
+                                 page_size=page_size)
+            self.params = self.plan.shard_params(params)
+            self.pool = self.plan.init_pool()
+            self.pages = self.plan.init_pages() if n_pages else None
+            self._prefill = self.plan.prefill
+            self._decode = self.plan.decode
+            self._verify = self.plan.verify
+        else:
+            self.params = params
+            self.pool = TLM.init_cache(cfg, slots, max_len, cache_dtype,
+                                       self.device)
+            self.pages = (TLM.init_page_store(cfg, n_pages, page_size,
+                                              cache_dtype, self.device)
+                          if n_pages else None)
+            self._prefill = lambda p, t, c, lengths, off: TLM.prefill(
+                p, t, cfg, c, lengths=lengths, pos_offset=off)
+            self._decode = lambda p, c, t, pos: TLM.decode_step(p, t, pos,
+                                                                cfg, c)
+            self._verify = lambda p, c, w, pos: TLM.verify_step(p, w, pos,
+                                                                cfg, c)
         self._slot_req: List[Optional[ServeRequest]] = [None] * slots
         self._tok = np.zeros(slots, np.int32)     # next input token per slot
         self._pos = np.zeros(slots, np.int32)     # its absolute position
-        self._prefill = lambda p, t, c, lengths, off: TLM.prefill(
-            p, t, cfg, c, lengths=lengths, pos_offset=off)
-        self._decode = lambda p, c, t, pos: TLM.decode_step(p, t, pos, cfg,
-                                                            c)
+        self._emitted: List[int] = []             # this step's, for agree
         self.completed: List[ServeRequest] = []
         self.decode_steps = 0
         self.busy_slot_steps = 0
         self.prefills = 0
         self.prefill_tokens = 0       # real (unpadded) tokens prefilled
         self.prefix_hit_tokens = 0    # prompt tokens served from the cache
-        # ---- paged prefix cache (gated to position-indexed cache layouts)
-        self.page_size = page_size
-        self.prefix: Optional[PrefixCache] = None
-        if prefix_caching and padded_prefill_ok(cfg) \
-                and 0 < page_size <= max_len:
-            n_pages = cache_pages or 2 * slots * (max_len // page_size)
-            self.prefix = PrefixCache(page_size, n_pages)
-            self.pages = TLM.init_page_store(cfg, n_pages, page_size,
-                                             cache_dtype, self.device)
         self._slot_chain: List[Tuple[int, ...]] = [()] * slots
+        # ---- draft-model speculation (serve/speculative.py)
+        self.speculator = None
+        if spec is not None:
+            from repro_torch.serve.speculative import Speculator
+            self.speculator = Speculator(
+                spec, cfg, self.params, draft_params, slots=slots,
+                max_len=max_len, cache_dtype=cache_dtype,
+                device=self.device, mesh=self.mesh, rules=rules)
 
     def _check_device(self, t: torch.Tensor) -> None:
         if t.device.type != self.device.type:
@@ -245,7 +546,9 @@ class Engine:
                                    self._cache_dtype, self.device)
             if chain:
                 # the COW copy: shared pages -> this request's private row
-                fresh = TLM.gather_pages(fresh, self.pages, chain)
+                fresh = (self.plan.gather_pages(fresh, self.pages, chain)
+                         if self.plan else
+                         TLM.gather_pages(fresh, self.pages, chain))
             logits, fresh = self._prefill(
                 self.params, self._tensor(toks), fresh,
                 self._tensor([len(suffix)]), hit)
@@ -253,7 +556,9 @@ class Engine:
             self.prefill_tokens += len(suffix)
             # full-row copy: the freed slot inherits nothing from its
             # previous occupant (no KV leakage on reuse)
-            self.pool = TLM.write_slot(self.pool, fresh, slot)
+            self.pool = (self.plan.write_slot(self.pool, fresh, slot)
+                         if self.plan else
+                         TLM.write_slot(self.pool, fresh, slot))
             self._slot_req[slot] = req
             self._pos[slot] = plen
             if req.max_new <= 0:
@@ -273,6 +578,7 @@ class Engine:
     # ---- token emission / finish ----------------------------------------
     def _emit(self, req: ServeRequest, tok: int) -> None:
         req.output.append(tok)
+        self._emitted.append(tok)
         if req.timing.first_token_t is None:
             req.timing.first_token_t = time.time()
         if self.stream is not None:
@@ -310,9 +616,9 @@ class Engine:
             [req.prompt, np.asarray(req.output[:-1], np.int32)])
         new = self.prefix.insert(seq)
         if new:
-            self.pages = TLM.store_pages(
-                self.pages, self.pool, slot,
-                [p for p, _ in new], [i for _, i in new])
+            store = self.plan.store_pages if self.plan else TLM.store_pages
+            self.pages = store(self.pages, self.pool, slot,
+                               [p for p, _ in new], [i for _, i in new])
 
     # ---- the serving loop ------------------------------------------------
     def _spec_eligible(self, active: List[int]) -> bool:
@@ -333,7 +639,16 @@ class Engine:
         """Admit into free slots, then one pass over the whole pool: a
         (slots, K) speculative verify pass when configured and in bounds, a
         (slots, 1) decode step otherwise. Returns False once queue and pool
-        are both empty."""
+        are both empty. Over a mesh, the tokens emitted in the call are
+        checked equal on every rank."""
+        try:
+            return self._step()
+        finally:
+            if self.mesh is not None:
+                C.agree(self._emitted, self.mesh, "emitted tokens")
+            self._emitted.clear()
+
+    def _step(self) -> bool:
         with torch.no_grad():
             self._admit()
             active = [s for s in range(self.slots) if self._slot_req[s]]
@@ -377,9 +692,9 @@ class Engine:
         k = spec.spec.k
         p0 = self._pos.copy()
         window = spec.propose(self._tok, self._pos)
-        logits, self.pool = TLM.verify_step(
-            self.params, self._tensor(window), self._tensor(p0), self.cfg,
-            self.pool)
+        logits, self.pool = self._verify(self.params, self.pool,
+                                         self._tensor(window),
+                                         self._tensor(p0))
         rows = logits.cpu().numpy()                 # one host transfer
         self.decode_steps += 1
         self.busy_slot_steps += len(active)
@@ -413,7 +728,10 @@ class Engine:
         # Parked rows (frontier == p0 == 0) collected junk at [0, K) during
         # the pass: erased the same way.
         stop = p0 + k
-        TLM.rollback_positions(self.pool, frontier, stop)
+        if self.plan:
+            self.plan.rollback(self.pool, frontier, stop)
+        else:
+            TLM.rollback_positions(self.pool, frontier, stop)
         spec.rollback(frontier, stop)
         for s in retired:
             self._retire(s)

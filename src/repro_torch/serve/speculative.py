@@ -36,6 +36,14 @@ Speculation is gated to position-indexed cache layouts (the
 in irreversibly and windowed ring buffers alias positions. PyTorch runs
 eagerly, so the reference's compiled-function caches have no counterpart;
 the caches are written in place, and the draft's pool is its own.
+
+Over a mesh (the engine's ``mesh=``) the draft runs through a
+``serve.engine.MeshPlan`` of its own config, as the reference's draft runs
+through its own ``mesh_compiled_fns``: the draft pool is sharded like the
+target's, each draft step gathers the params and runs on the rank's slot
+rows, and the proposals come from the gathered logits, so every rank
+proposes the same window. A draft on the target's architecture shares the
+engine's parameter shards.
 """
 from __future__ import annotations
 
@@ -129,7 +137,9 @@ class Speculator:
 
     def __init__(self, spec: SpecConfig, target_cfg: ArchConfig, params,
                  draft_params, *, slots: int, max_len: int, cache_dtype,
-                 device):
+                 device, mesh=None, rules=None):
+        """``params`` are the engine's (its shards over a mesh);
+        ``draft_params`` the draft config's own, full, or None."""
         self.spec = spec
         self.cfg = spec.draft_arch(target_cfg)
         TLM.require_position_indexed(target_cfg)
@@ -137,18 +147,31 @@ class Speculator:
         if spec.draft_cfg is not None and draft_params is None:
             raise ValueError("SpecConfig.draft_cfg set but no draft_params "
                              "given to the Engine")
-        self.params = params if draft_params is None else draft_params
         self.slots, self.max_len = slots, max_len
         self.device = device
         self._cache_dtype = cache_dtype
-        self.pool = TLM.init_cache(self.cfg, slots, max_len, cache_dtype,
-                                   device)
+        self.plan = None
+        if mesh is not None:
+            from repro_torch.serve.engine import MeshPlan
+            self.plan = MeshPlan(self.cfg, mesh, rules, slots=slots,
+                                 max_len=max_len, cache_dtype=cache_dtype,
+                                 device=device)
+            self.params = (params if draft_params is None
+                           else self.plan.shard_params(draft_params))
+            self.pool = self.plan.init_pool()
+        else:
+            self.params = params if draft_params is None else draft_params
+            self.pool = TLM.init_cache(self.cfg, slots, max_len,
+                                       cache_dtype, device)
         self.metrics = SpecMetrics(spec.k)
 
     def _tensor(self, a) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a), device=self.device)
 
     def _decode(self, tok: np.ndarray, pos: np.ndarray) -> torch.Tensor:
+        if self.plan is not None:
+            return self.plan.decode(self.params, self.pool, self._tensor(tok),
+                                    self._tensor(pos))[0]
         logits, _ = TLM.decode_step(self.params, self._tensor(tok),
                                     self._tensor(pos), self.cfg, self.pool)
         return logits
@@ -164,6 +187,11 @@ class Speculator:
         toks[0, :plen] = prompt
         fresh = TLM.init_cache(self.cfg, 1, self.max_len, self._cache_dtype,
                                self.device)
+        if self.plan is not None:
+            self.plan.prefill(self.params, self._tensor(toks), fresh,
+                              self._tensor([plen]), 0)
+            self.plan.write_slot(self.pool, fresh, slot)
+            return
         TLM.prefill(self.params, self._tensor(toks), self.cfg, fresh,
                     lengths=self._tensor([plen]), pos_offset=0)
         TLM.write_slot(self.pool, fresh, slot)
@@ -196,7 +224,10 @@ class Speculator:
 
     def rollback(self, start: np.ndarray, stop: np.ndarray) -> None:
         """Erase draft KV at positions [start[s], stop[s]) per slot."""
-        TLM.rollback_positions(self.pool, start, stop)
+        if self.plan is not None:
+            self.plan.rollback(self.pool, start, stop)
+        else:
+            TLM.rollback_positions(self.pool, start, stop)
 
 
 def acceptance(window_row: np.ndarray, emitted: List[int]) -> int:

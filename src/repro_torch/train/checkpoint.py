@@ -22,7 +22,8 @@ Fault-tolerance properties, the reference's:
                        only on the previous save
 Arrays are saved whole; ``restore`` puts each leaf on the device of the
 matching leaf of ``like`` (the reference re-applies a mesh's shardings
-there; the port has no mesh yet, ROADMAP.md queue A, item 20).
+there; restoring onto a mesh waits for training over one, ROADMAP.md
+queue A, item 23).
 """
 from __future__ import annotations
 

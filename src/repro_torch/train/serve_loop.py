@@ -4,8 +4,8 @@ after the JAX package's ``repro.train.serve_loop``.
 ``Server`` is ``repro_torch.serve.Engine`` run under the 'drain' admission
 policy: admit a full batch, decode until every request in the wave
 finishes, only then admit the next wave: the baseline that continuous
-batching is compared against. It takes no sharding rules: the sharded
-engine is ROADMAP.md queue A, item 20.
+batching is compared against. It takes no mesh: ``Engine(mesh=)`` serves
+over one directly.
 """
 from __future__ import annotations
 

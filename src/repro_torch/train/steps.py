@@ -6,7 +6,8 @@ opt_state, metrics)``: the loss and its gradients by autograd (the
 quantized matmuls' straight-through backward; fake-quant under ``qat``),
 then one AdamW update, under ``cnn_train.training_numerics`` (no TF32).
 The reference jits it; here it runs eagerly, on the device of its
-tensors. It takes no sharding rules (ROADMAP.md queue A, item 20).
+tensors. It takes no sharding rules yet (training over a mesh is ROADMAP.md
+queue A, item 23).
 """
 from __future__ import annotations
 

@@ -12,8 +12,8 @@
 
 As in the reference, a resumed run draws its batches from the start of the
 iterator it is given, not from where the crashed run stopped (ROADMAP.md
-queue C). The port takes no sharding rules (queue A, item 20); each step
-runs eagerly on ``device``.
+queue C). The port takes no sharding rules yet (training over a mesh is queue A,
+item 23); each step runs eagerly on ``device``.
 """
 from __future__ import annotations
 

@@ -22,11 +22,12 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+
+import _torch_refs as REFS
 import torch
 
 from repro.data import synthetic
 from repro.models import cnn as JCNN
-from repro.quant import matmul as JQM
 from repro.quant.quantize import QuantConfig as JQuantConfig
 from repro.train import cnn_train as JT
 
@@ -61,7 +62,7 @@ def _operands(shape, seed):
 
 
 def _jax_backend_outputs(x, w):
-    return {name: np.asarray(JQM.get_backend(name).fn(
+    return {name: np.asarray(REFS.integer_matmul(
         jnp.asarray(x), jnp.asarray(w), JQuantConfig(backend=name)))
         for name in QM.list_backends()}
 

@@ -1,6 +1,8 @@
 """The port stands alone: no module of src/repro_torch, and not
-chip_smoke.py, imports JAX or anything of the JAX package (checked on the
-AST), and the package imports where JAX cannot be imported."""
+chip_smoke.py or the sharded tests' rank functions
+(tests/_torch_mesh_ranks.py), imports JAX or anything of the JAX package
+(checked on the AST), and the package imports where JAX cannot be
+imported."""
 import ast
 import subprocess
 import sys
@@ -11,7 +13,10 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
-FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+# the sharded tests' rank functions run in processes that must not import
+# JAX either
+FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                      ROOT / "tests" / "_torch_mesh_ranks.py"]
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 

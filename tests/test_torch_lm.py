@@ -25,6 +25,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import _torch_refs as REFS
 import torch
 
 from repro.configs import registry as RR
@@ -95,7 +96,7 @@ def _tiny(arch="smollm-135m", param_dtype="float32"):
     """(JAX cfg, port cfg, JAX params, port params) of the reduced arch."""
     rcfg = RR.reduced(arch, **TINY, param_dtype=getattr(jnp, param_dtype))
     pcfg = PR.reduced(arch, **TINY, param_dtype=getattr(torch, param_dtype))
-    rparams = jax.jit(RT.init, static_argnums=0)(rcfg, jax.random.PRNGKey(0))
+    rparams = REFS.init(rcfg)
     pparams = params_from_jax(jax.tree.map(np.asarray, rparams),
                               device="cpu")
     return rcfg, pcfg, rparams, pparams

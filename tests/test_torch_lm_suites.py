@@ -219,3 +219,15 @@ def test_serve_workload_matches_reference():
         RSV._parity({0: [1, 2, 3]}, {0: [1, 2, 4]})
     assert dataclasses.asdict(SERVE.SPEC) == {
         "k": 4, "draft_backend": "approx_stage1", "draft_cfg": None}
+
+
+def test_serve_suite_draft_on_the_card_is_approx_stage1_bitwise():
+    """On the card the serve suite drafts through approx_stage1's CUDA twin,
+    whose registered oracle is approx_stage1 (held bitwise to it on the card
+    by chip_smoke.py's serve phase); elsewhere it drafts as SPEC says."""
+    assert SERVE.spec_config("cpu") == SERVE.SPEC
+    cuda = SERVE.spec_config("cuda")
+    assert dataclasses.replace(cuda, draft_backend="approx_stage1") == \
+        SERVE.SPEC
+    assert QM.get_backend(cuda.draft_backend).oracle == \
+        SERVE.SPEC.draft_backend

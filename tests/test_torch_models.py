@@ -18,6 +18,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+
+import _torch_refs as REFS
 import torch
 
 from repro.eval import image as RIQ
@@ -215,7 +217,7 @@ def test_lenet5_first_layer_codes_and_accumulators_bitwise(lenet):
     np.testing.assert_array_equal(xq.numpy(), np.asarray(rxq))
     np.testing.assert_array_equal(wq.numpy(), np.asarray(rwq))
     rows = slice(300, 428)          # 128 patch rows, across the digit
-    ref = {name: np.asarray(RQM.integer_matmul(
+    ref = {name: np.asarray(REFS.integer_matmul(
         rxq[rows], rwq, RQ.QuantConfig(backend=name)))
         for name in {_ref_backend(b) for b in QM.list_backends()}}
     for backend in QM.list_backends():

@@ -8,6 +8,8 @@ import dataclasses
 import jax.numpy as jnp
 import numpy as np
 import pytest
+
+import _torch_refs as REFS
 import torch
 
 import importlib
@@ -112,8 +114,8 @@ def test_backend_int32_matches_reference(name, shape):
     x, w = _q(m, k), _q(k, n)
     got = QM.integer_matmul(torch.from_numpy(x), torch.from_numpy(w),
                             Q.QuantConfig(backend=name))
-    want = RQM.integer_matmul(jnp.asarray(x), jnp.asarray(w),
-                              RQ.QuantConfig(backend=name))
+    want = REFS.integer_matmul(jnp.asarray(x), jnp.asarray(w),
+                               RQ.QuantConfig(backend=name))
     assert got.dtype == torch.int32
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
@@ -126,9 +128,9 @@ def test_backend_designs_match_reference(name, design):
     x, w = _q(7, 12), _q(12, 5)
     cfg = Q.QuantConfig(backend=name, multiplier=design)
     got = QM.integer_matmul(torch.from_numpy(x), torch.from_numpy(w), cfg)
-    want = RQM.integer_matmul(jnp.asarray(x), jnp.asarray(w),
-                              RQ.QuantConfig(backend=name,
-                                             multiplier=design))
+    want = REFS.integer_matmul(jnp.asarray(x), jnp.asarray(w),
+                               RQ.QuantConfig(backend=name,
+                                              multiplier=design))
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 

@@ -34,17 +34,18 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_refs as REFS
 from _hypothesis_compat import given, settings, st
 from repro.configs import registry as RR
-from repro.models import transformer_lm as RT
 from repro.quant import matmul as RQM
-from repro.serve import engine as RE
 from repro.serve import paging as RPG
 from repro.serve import scheduler as RS
 
 from repro_torch.configs import registry as PR
 from repro_torch.convert import params_from_jax
+from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models import transformer_lm as PT
+from repro_torch.parallel.sharding import MeshLayout
 from repro_torch.quant import matmul as QM
 from repro_torch.quant.quantize import for_lm
 from repro_torch.serve import (Engine, FINISH_REASONS, PagePool, PrefixCache,
@@ -76,7 +77,7 @@ BACKENDS = ("bf16",) + QM.list_backends()
 def _tiny():
     rcfg = RR.reduced("smollm-135m", **TINY)
     pcfg = PR.reduced("smollm-135m", **TINY)
-    rparams = jax.jit(RT.init, static_argnums=0)(rcfg, jax.random.PRNGKey(0))
+    rparams = REFS.init(rcfg)
     pparams = params_from_jax(jax.tree.map(np.asarray, rparams),
                               device="cpu")
     return rcfg, pcfg, rparams, pparams
@@ -135,48 +136,9 @@ def _oracle(cfg, prompt, max_new):
 # The engine against the JAX package's
 # ---------------------------------------------------------------------------
 
-# (suffix length, max_new) behind a 4-token shared prefix (one page at
-# page_size 4): cold prompts and the suffixes of cache hits both prefill in
-# the 8-token bucket, so the JAX engine compiles one prefill shape
-WORKLOAD_SUFFIXES = ((3, 3), (2, 6), (4, 4), (1, 5))
-
-
-def _workload():
-    rng = np.random.default_rng(31)
-    shared = rng.integers(0, TINY["vocab"], 4).astype(np.int32)
-    return [(rid, np.concatenate([shared, rng.integers(0, TINY["vocab"], n)
-                                  .astype(np.int32)]), m)
-            for rid, (n, m) in enumerate(WORKLOAD_SUFFIXES)]
-
-
-def _recorded_serve(module, engine):
-    """Serve the workload through ``engine`` while recording every logits
-    row ``module.sample_token`` sees -> ({rid: tokens}, {(rid, step):
-    row}, stats)."""
-    rows = {}
-    inner = module.sample_token
-
-    def record(logits, scfg, rid, step):
-        rows[(rid, step)] = np.asarray(logits, np.float32).copy()
-        return inner(logits, scfg, rid, step)
-
-    module.sample_token = record
-    try:
-        for rid, prompt, max_new in _workload():
-            engine.submit(module.ServeRequest(rid=rid, prompt=prompt,
-                                              max_new=max_new))
-        stats = engine.run()
-    finally:
-        module.sample_token = inner
-    return {r.rid: list(r.output) for r in engine.completed}, rows, stats
-
-
-@functools.lru_cache(maxsize=None)
-def _jax_served(backend):
-    rcfg, _, rparams, _ = _tiny()
-    cfg = dataclasses.replace(rcfg, quant=RQ.for_lm(backend))
-    return _recorded_serve(RE, RE.Engine(cfg, rparams, slots=2,
-                                         max_len=MAX_LEN, page_size=4))
+_workload = REFS.workload
+_recorded_serve = REFS.recorded_serve
+_jax_served = REFS.jax_served
 
 
 @pytest.mark.parametrize("backend", JAX_BACKENDS)
@@ -325,8 +287,13 @@ def test_engine_rejects_what_it_does_not_run():
     eng = Engine(cfg, params, slots=1, max_len=8, device="cpu")
     with pytest.raises(ValueError, match="empty prompt"):
         eng.submit(ServeRequest(rid=0, prompt=np.zeros(0, np.int32)))
-    with pytest.raises(NotImplementedError, match="item 20"):
-        Engine(cfg, params, mesh=object(), device="cpu")
+    # a mesh of one position serves unsharded; a larger one must be a
+    # DeviceMesh of ranks (tests/test_torch_serve_mesh.py serves over one)
+    assert Engine(cfg, params, slots=1, max_len=8, device="cpu",
+                  mesh=make_host_mesh()).mesh is None
+    with pytest.raises(TypeError, match="DeviceMesh"):
+        Engine(cfg, params, mesh=MeshLayout(("data", "model"), (2, 2)),
+               device="cpu")
     with pytest.raises(ValueError, match="position-indexed"):
         Engine(dataclasses.replace(cfg, local_window=8), params,
                spec=SpecConfig(k=4), device="cpu")

@@ -31,9 +31,9 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_refs as REFS
 from _hypothesis_compat import given, settings, st
 from repro.configs import registry as RR
-from repro.models import transformer_lm as RT
 from repro.quant import matmul as RQM
 from repro.serve import engine as RE
 from repro.serve import speculative as RSP
@@ -66,7 +66,7 @@ STAGE1 = SpecConfig(k=4, draft_backend="approx_stage1")
 def _tiny():
     rcfg = RR.reduced("smollm-135m", **TINY)
     pcfg = PR.reduced("smollm-135m", **TINY)
-    rparams = jax.jit(RT.init, static_argnums=0)(rcfg, jax.random.PRNGKey(0))
+    rparams = REFS.init(rcfg)
     pparams = params_from_jax(jax.tree.map(np.asarray, rparams),
                               device="cpu")
     return rcfg, pcfg, rparams, pparams

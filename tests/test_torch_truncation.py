@@ -12,11 +12,12 @@ import importlib
 import jax.numpy as jnp
 import numpy as np
 import pytest
+
+import _torch_refs as REFS
 import torch
 
 from repro.core import hwproxy as RHW
 from repro.core import truncation as RT
-from repro.quant import matmul as RQM
 from repro.quant import truncated as RTQ
 
 from repro_torch.core import hwproxy as HW
@@ -101,8 +102,8 @@ def test_backend_int32_equals_reference_and_oracle(name, kind, shape):
     w = RNG.integers(-128, 128, (k, n)).astype(np.int8)
     tx, tw = torch.from_numpy(x), torch.from_numpy(w)
     got = QM.integer_matmul(tx, tw, QuantConfig(backend=name))
-    want = RQM.integer_matmul(jnp.asarray(x), jnp.asarray(w),
-                              RQ.QuantConfig(backend=name))
+    want = REFS.integer_matmul(jnp.asarray(x), jnp.asarray(w),
+                               RQ.QuantConfig(backend=name))
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
     oracle = QM.get_backend(name).oracle or name
     np.testing.assert_array_equal(
