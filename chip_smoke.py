@@ -171,9 +171,9 @@ Phases, each printing its seconds:
 12. train  the LM training path. (a) The fault-tolerant loop
             (repro_torch.train.train_loop) on smollm-135m at its
             published width: QAT, AdamW with int8 second moments, two
-            microbatches, batch 8 x 64, a checkpoint every 4 steps and a
-            failure injected after step 9 of 12; the rerun resumes from
-            step 8 and runs 4 steps; every leaf restored from step 8
+            microbatches, batch 8 x 64, a checkpoint every 2 steps and a
+            failure injected after step 4 of 6; the rerun resumes from
+            step 4 and runs 2 steps; every leaf restored from step 4
             (params, bf16 m, int8 v codes, v scales, the step count)
             equals the host copy that was saved, bit for bit; the loss is
             finite and falls; ms per step, the seconds and bytes of one
@@ -183,7 +183,7 @@ Phases, each printing its seconds:
             smollm-135m whole, gemma3-27b at depth 6 (one 5:1 group, 3.9 B
             parameters), deepseek-v2-236b at depth 1 (5.1 B), rwkv6-3b
             and hymba-1.5b whole, at their published widths (bf16 from
-            seed 0, remat on): three
+            seed 0, remat on): two
             make_train_step(qat=True) steps with quantized AdamW on one
             token_stream batch of 8 x 64, a finite and falling loss,
             the MoE aux loss, ms per step, one profiled step's busy and
@@ -266,12 +266,33 @@ Phases, each printing its seconds:
             do not divide 'model', so those leaves replicate, and the MLP
             and vocab leaves must be sharded (the plan is printed); per
             backend the decode step's ms, its all-gather ms and the bytes
-            gathered a step;
+            gathered a step; (c) training over the mesh: before the ranks
+            start, the parent runs the single-device reference, smollm-135m
+            whole (bf16 from seed 0, int8-state AdamW at TRAIN_LR, deterministic
+            algorithms) for one make_train_step(num_microbatches=2) step
+            under each of approx_deficit_pallas, approx_deficit_pallas and
+            approx_rank1_pallas on the train phase's 8 x 64 batches 0-2; each
+            rank draws the same init, keeps its shards and runs the sharded
+            make_train_step(mesh=) (4 rows a 'data' position, the gradients
+            gathered as bytes and added in rank order), saving the logical
+            state after every step (rank 0 writes): every rank's losses
+            equal the reference's bit for bit, the ranks launch K2[deficit]
+            and K4[rank1], and per step and rank the ms, the bytes gathered
+            (params, gradients, the AdamW state of leaves updated whole),
+            the all-gather seconds and the peak GiB; (d) the parent restores
+            the mesh's checkpoints of steps 1-3 onto one device, every leaf
+            bitwise the reference's after that step, and one more
+            single-device step from step 2 equals the mesh's step 3; (e)
+            parallel.pipeline.pipeline_apply over the 4 ranks as a ('stage',)
+            mesh, each stage a quantized dense (relu) through K2[deficit] at
+            576 x 576, 6 microbatches of 4 x 64 rows: bitwise the sequential
+            loop of the same 4 layers on one device;
 17. launch counts, set to 0 before each of phases 4, 5 and 6 (the suite
    runners' calls), 7 (the served runs), 8 (the speculative runs), the
    served runs of 9, 10, 11 and 13, the STE steps of 12 and 13, the
    examples' processes (each reports its own) and the shard ranks'
-   sharded matmuls and served runs (summed over the ranks), and read
+   sharded matmuls, served runs, training steps and pipeline (summed over
+   the ranks), and read
    after it: LeNet-5, FFDNet and the shard ranks each launch every entry
    but fused_matmul[exact], the suites, spec, train, xattn, examples and
    the ring, deepseek and ssm paths every fused entry, the serve path
@@ -2239,6 +2260,167 @@ def _shard_engine(torch, K, C, mesh, state, dev: str) -> tuple:
     return out, launches, plan
 
 
+# (c) training over the mesh: smollm-135m whole, one STE backend a step;
+# (e) the pipeline: 4 stages of a quantized dense through K2[deficit]
+SHARD_TRAIN_BACKENDS = ("approx_deficit_pallas", "approx_deficit_pallas",
+                        "approx_rank1_pallas")
+SHARD_TRAIN_DIR = ROOT / "build" / "shard_ckpt"
+SHARD_PIPE = {"cuda": (576, 6, (4, 64)),     # width, microbatches, (B, S)
+              "cpu": (64, 6, (2, 8))}
+
+
+def _differing(torch, a, b) -> list:
+    """Paths of the leaves of two trees that differ in dtype, shape or
+    bits."""
+    from repro_torch.optim.adamw import flatten
+    return ["/".join(map(str, p)) for (p, x), (_, y) in
+            zip(flatten(a), flatten(b))
+            if x.dtype != y.dtype or x.shape != y.shape
+            or not torch.equal(x, y)]
+
+
+def shard_train_reference(torch, dev: str) -> dict:
+    """Phase 16 (c)'s reference, in the parent before the ranks start:
+    smollm-135m at its published width (on the CPU the train loop's
+    2-layer smollm), bf16 from seed 0, int8-state AdamW at TRAIN_LR, one
+    single-device make_train_step(num_microbatches=2) step a backend of
+    SHARD_TRAIN_BACKENDS on the train phase's batches 0-2, under
+    deterministic algorithms. Returns the config, the batches (host
+    arrays, for the ranks), the losses, each step's ms and the params and
+    AdamW state after each step."""
+    from repro_torch.configs import registry
+    from repro_torch.models import transformer_lm as TLM
+    from repro_torch.nn.module import n_params
+    from repro_torch.optim import adamw
+    from repro_torch.quant.quantize import for_lm
+    from repro_torch.train import steps as ST
+    if dev == "cuda":
+        cfg = registry.get("smollm-135m")
+        check(n_params(TLM.descs(cfg)) == 134_515_008
+              and cfg.param_dtype == torch.bfloat16,
+              f"unexpected smollm-135m config {cfg}")
+    else:
+        cfg = registry.reduced("smollm-135m", n_layers=2, d_model=64,
+                               n_heads=4, n_kv_heads=2, d_ff=128, vocab=256,
+                               vocab_pad=256, head_dim=16,
+                               param_dtype=torch.bfloat16)
+    ocfg = adamw.AdamWConfig(lr=TRAIN_LR, quantized_state=True)
+    batch = _token_batches(torch, cfg, dev)
+    batches = [{k: v.cpu().numpy() for k, v in batch(i).items()}
+               for i in range(len(SHARD_TRAIN_BACKENDS))]
+    out = {"cfg": cfg, "ocfg": ocfg, "batches": batches, "losses": [],
+           "step_ms": [], "states": {}}
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        params = TLM.init(cfg, torch.Generator().manual_seed(0), device=dev)
+        opt = adamw.init(params, ocfg)
+        for i, be in enumerate(SHARD_TRAIN_BACKENDS):
+            step = ST.make_train_step(dataclasses.replace(
+                cfg, quant=for_lm(be)), ocfg, num_microbatches=2)
+            _sync(torch, dev)
+            t0 = time.perf_counter()
+            params, opt, m = step(params, opt, batch(i))
+            _sync(torch, dev)
+            out["step_ms"].append((time.perf_counter() - t0) * 1e3)
+            out["losses"].append(m["loss"].item())
+            out["states"][i + 1] = {"params": params, "opt": opt}
+    finally:
+        torch.use_deterministic_algorithms(False)
+    return out
+
+
+def _shard_train(torch, K, C, mesh, train: dict, dev: str) -> tuple:
+    """Phase 16 (c), in each rank: every rank draws the reference's full
+    init from seed 0 and keeps its shards; one sharded make_train_step a
+    backend of SHARD_TRAIN_BACKENDS on the reference's batches, 4 rows a
+    'data' position, under deterministic algorithms; after each step the
+    logical state saved to SHARD_TRAIN_DIR (gathered, written by rank 0).
+    Per step: the loss, ms (host clock, synchronized), the bytes gathered
+    (params, gradients, the state of leaves updated whole), the
+    all-gather seconds and the peak GiB. Returns (per step, the steps'
+    launches)."""
+    from repro_torch.models import transformer_lm as TLM
+    from repro_torch.quant.quantize import for_lm
+    from repro_torch.train import checkpoint as CK
+    from repro_torch.train import steps as ST
+    cfg, ocfg = train["cfg"], train["ocfg"]
+    rows = []
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        params = TLM.init(cfg, torch.Generator().manual_seed(0), device=dev)
+        plan = ST.TrainPlan(cfg, ocfg, mesh)
+        pm, sm = plan.shard_params(params), plan.init_state(dev)
+        del params
+        mgr = CK.CheckpointManager(SHARD_TRAIN_DIR, keep=3)
+        K.reset_launch_counts()
+        for i, be in enumerate(SHARD_TRAIN_BACKENDS):
+            step = ST.make_train_step(dataclasses.replace(
+                cfg, quant=for_lm(be)), ocfg, mesh=mesh)
+            b = {k: torch.as_tensor(v, device=dev)
+                 for k, v in train["batches"][i].items()}
+            if dev == "cuda":
+                torch.cuda.reset_peak_memory_stats()
+            g0 = C.STATS["seconds"]
+            _sync(torch, dev)
+            t0 = time.perf_counter()
+            pm, sm, m = step(pm, sm, b)
+            _sync(torch, dev)
+            rows.append({
+                "backend": be, "loss": m["loss"].item(),
+                "ms": (time.perf_counter() - t0) * 1e3,
+                "gather_s": C.STATS["seconds"] - g0,
+                **{k: v for k, v in step.plan.stats.items()},
+                "peak_gb": (torch.cuda.max_memory_allocated() / 2 ** 30
+                            if dev == "cuda" else None)})
+            mgr.save(i + 1, {"params": pm, "opt": sm}, plan.specs, mesh)
+        launches = launch_counts(K)
+        mgr.wait()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    return rows, launches
+
+
+def _shard_pipeline(torch, K, dev: str) -> tuple:
+    """Phase 16 (e), in each rank: ``pipeline_apply`` over the 4 ranks as a
+    ('stage',) mesh, each stage a quantized dense (relu) through
+    K2[deficit] at SHARD_PIPE's width, against the sequential loop of the
+    same 4 layers on this rank (one device, microbatch by microbatch):
+    bitwise. Returns (its line, the pipeline's launches)."""
+    from repro_torch.launch.mesh import make_serving_mesh
+    from repro_torch.nn.layers import dense
+    from repro_torch.parallel.pipeline import pipeline_apply
+    from repro_torch.quant.quantize import for_lm
+    width, n_micro, (b, s) = SHARD_PIPE[dev]
+    pmesh = make_serving_mesh((SHARD_WORLD,), ("stage",), dev)
+    gen = torch.Generator(device=dev).manual_seed(23)
+    params = {"w": torch.randn((SHARD_WORLD, width, width), generator=gen,
+                               device=dev) * width ** -0.5,
+              "b": torch.randn((SHARD_WORLD, width), generator=gen,
+                               device=dev) * 0.1}
+    x = torch.randn((n_micro, b, s, width), generator=gen, device=dev)
+    cfg = for_lm("approx_deficit_pallas")
+
+    def fn(p, h):
+        return dense(p, h, cfg, activation="relu")
+
+    K.reset_launch_counts()
+    _sync(torch, dev)
+    t0 = time.perf_counter()
+    out = pipeline_apply(fn, pmesh, params, x)
+    _sync(torch, dev)
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = launch_counts(K)
+    seq = []
+    for i in range(n_micro):
+        h = x[i]
+        for st in range(SHARD_WORLD):
+            h = fn({k: v[st] for k, v in params.items()}, h)
+        seq.append(h)
+    return {"bitwise": torch.equal(out, torch.stack(seq)), "ms": ms,
+            "shape": [n_micro, b, s, width],
+            "ticks": n_micro + SHARD_WORLD - 1}, launches
+
+
 def _spec_paths(tree, prefix=()):
     if isinstance(tree, dict):
         for k, v in tree.items():
@@ -2250,12 +2432,13 @@ def _spec_paths(tree, prefix=()):
         yield prefix, tree
 
 
-def shard_rank(rank: int, state: dict, lib, dev: str,
+def shard_rank(rank: int, state: dict, train: dict, lib, dev: str,
                t_spawn: float) -> dict:
     """One rank of phase 16: the card's TF32 off as in phase 1, the built
-    kernel library loaded (never built here), the 2 x 2 mesh, then (a) and
-    (b). Returns host objects only. On the CPU (``lib`` None) the same
-    code runs the plain versions at SHARD_SMOKE_SHAPES: the rehearsal."""
+    kernel library loaded (never built here), the 2 x 2 mesh, then (a),
+    (b), (c) and (e). Returns host objects only. On the CPU (``lib`` None)
+    the same code runs the plain versions at SHARD_SMOKE_SHAPES and the
+    2-layer smollm: the rehearsal."""
     t_enter = time.time()
     import torch
     from repro_torch.kernels import approx_matmul as K
@@ -2281,13 +2464,23 @@ def shard_rank(rank: int, state: dict, lib, dev: str,
     t1 = time.perf_counter()
     serve, sv_launches, plan = _shard_engine(torch, K, C, mesh, state, dev)
     t2 = time.perf_counter()
+    trained, tr_launches = _shard_train(torch, K, C, mesh, train, dev)
+    t3 = time.perf_counter()
+    pipe, pp_launches = _shard_pipeline(torch, K, dev)
+    t4 = time.perf_counter()
     return {"rank": rank, "coords": mesh.get_coordinate(), "probe": probe,
             "matmul": matmul, "serve": serve, "plan": plan,
+            "train": trained, "pipeline": pipe,
             "launches": {f"{e}[{v}]": mm_launches[(e, v)] + sv_launches[(e, v)]
+                         + tr_launches[(e, v)] + pp_launches[(e, v)]
                          for e, v in mm_launches},
+            "train_launches": {f"{e}[{v}]": n
+                               for (e, v), n in tr_launches.items()},
+            "pipeline_launches": {f"{e}[{v}]": n
+                                  for (e, v), n in pp_launches.items()},
             "start_s": t_enter - t_spawn, "setup_s": time.time() - t_enter
-            - (t2 - t0), "matmul_s": t1 - t0, "serve_s": t2 - t1,
-            "done": time.time()}
+            - (t4 - t0), "matmul_s": t1 - t0, "serve_s": t2 - t1,
+            "train_s": t3 - t2, "pipeline_s": t4 - t3, "done": time.time()}
 
 
 def shard_phase(torch, detail, state: dict, dev: str = "cuda") -> tuple:
@@ -2303,19 +2496,29 @@ def shard_phase(torch, detail, state: dict, dev: str = "cuda") -> tuple:
     if dev == "cuda":
         print(f"  card: {smi_line()}")
         torch.cuda.empty_cache()
+    t_ref = time.perf_counter()
+    ref = shard_train_reference(torch, dev)
+    ref_s = time.perf_counter() - t_ref
+    train = {k: ref[k] for k in ("cfg", "ocfg", "batches")}
+    shutil.rmtree(SHARD_TRAIN_DIR, ignore_errors=True)
     t_spawn = time.time()
-    ranks = run_world(shard_rank, SHARD_WORLD, (shared, lib, dev, t_spawn),
+    ranks = run_world(shard_rank, SHARD_WORLD, (shared, train, lib, dev,
+                                                t_spawn),
                       backend="gloo", device=dev, timeout_s=SHARD_TIMEOUT)
     world_s = time.time() - t_spawn
     r0 = ranks[0]
     most = {key: max(r[key] for r in ranks)
-            for key in ("start_s", "setup_s", "matmul_s", "serve_s")}
+            for key in ("start_s", "setup_s", "matmul_s", "serve_s",
+                        "train_s", "pipeline_s")}
     print(f"  ranks: entered after {most['start_s']:.1f} s (forked, card "
           f"selected, process group joined), loaded the kernels and built "
           f"the mesh in {most['setup_s']:.1f} s, matmuls "
-          f"{most['matmul_s']:.1f} s, served {most['serve_s']:.1f} s; "
-          f"joined {time.time() - max(r['done'] for r in ranks):.1f} s "
-          f"after the last result; {world_s:.1f} s in all")
+          f"{most['matmul_s']:.1f} s, served {most['serve_s']:.1f} s, "
+          f"trained {most['train_s']:.1f} s, pipeline "
+          f"{most['pipeline_s']:.1f} s; joined "
+          f"{time.time() - max(r['done'] for r in ranks):.1f} s after the "
+          f"last result; {world_s:.1f} s in all (the single-device "
+          f"training reference before it: {ref_s:.1f} s)")
     print(f"  gloo on card tensors: {r0['probe']} (the port stages no "
           "collective through host memory)")
     for r in ranks:
@@ -2375,6 +2578,8 @@ def shard_phase(torch, detail, state: dict, dev: str = "cuda") -> tuple:
               flush=True)
         detail[f"shard_step_ms {be}"] = runs[0]["step_ms"]
         detail[f"shard_gather_ms {be}"] = runs[0]["gather_ms"]
+    line["train"] = shard_train_checks(torch, detail, ref, ranks, dev)
+    line["pipeline"] = shard_pipeline_checks(ranks, dev)
     launches = {key: 0 for key in launch_counts(K)}
     for r in ranks:
         for (e, v) in launches:
@@ -2383,6 +2588,120 @@ def shard_phase(torch, detail, state: dict, dev: str = "cuda") -> tuple:
         f"{e}[{v}] {n}" for (e, v), n in launches.items()))
     line["launches"] = {f"{e}[{v}]": n for (e, v), n in launches.items()}
     return line, launches
+
+
+def shard_train_checks(torch, detail, ref: dict, ranks: list,
+                       dev: str) -> dict:
+    """Phase 16 (c) and (d) in the parent: every rank's losses equal the
+    reference's bit for bit; the mesh's checkpoints of steps 1-3, restored
+    onto one device, equal the reference's params and AdamW state after
+    each step, leaf for leaf; one more single-device step from the restored
+    step 2 equals the mesh's step 3; the ranks' K2[deficit] and K4[rank1]
+    launches. Prints each step's ms, gathered bytes, all-gather seconds and
+    peak per rank beside the card."""
+    from repro_torch.optim.adamw import flatten
+    from repro_torch.quant.quantize import for_lm
+    from repro_torch.train import checkpoint as CK
+    from repro_torch.train import steps as ST
+    smi = smi_line() if dev == "cuda" else "cpu"
+    losses = [row["loss"] for row in ranks[0]["train"]]
+    for r in ranks:
+        got = [row["loss"] for row in r["train"]]
+        check(got == ref["losses"], f"shard train: rank {r['rank']}'s "
+              f"losses {got} differ from one device's {ref['losses']}")
+    for key in ("fused_matmul[deficit]", "rank1_fused_matmul[rank1]"):
+        check(dev != "cuda" or all(r["train_launches"][key] > 0
+                                   for r in ranks),
+              f"shard train: a rank's steps launched no {key}")
+    mgr = CK.CheckpointManager(SHARD_TRAIN_DIR)
+    check(mgr.all_steps() == [1, 2, 3],
+          f"shard train: checkpoints {mgr.all_steps()} on disk")
+    like = ref["states"][1]
+    restored = {}
+    for step in (1, 2, 3):
+        _sync(torch, dev)
+        t0 = time.perf_counter()
+        restored[step] = mgr.restore(step, like)
+        _sync(torch, dev)
+        bad = _differing(torch, restored[step], ref["states"][step])
+        check(not bad, f"shard train: the mesh's state after step {step} "
+              f"differs from one device's at {bad[:4]}")
+        restore_s = time.perf_counter() - t0
+    n_leaves = len(flatten(like))
+    # one more single-device step from the restored step 2
+    cfg, ocfg = ref["cfg"], ref["ocfg"]
+    batch = {k: torch.as_tensor(v, device=dev)
+             for k, v in ref["batches"][2].items()}
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        step = ST.make_train_step(dataclasses.replace(
+            cfg, quant=for_lm(SHARD_TRAIN_BACKENDS[2])), ocfg,
+            num_microbatches=2)
+        st2 = restored[2]
+        p3, o3, m3 = step(st2["params"], st2["opt"], batch)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    bad = _differing(torch, {"params": p3, "opt": o3}, restored[3])
+    check(not bad and m3["loss"].item() == losses[2],
+          f"shard train: a single-device step from the mesh's step-2 "
+          f"checkpoint differs from the mesh's step 3 at {bad[:4]}")
+    steps = []
+    for i, be in enumerate(SHARD_TRAIN_BACKENDS):
+        per = [r["train"][i] for r in ranks]
+        steps.append({"backend": be, "loss": losses[i],
+                      "single_device_ms": ref["step_ms"][i],
+                      "by_rank": per})
+        print(f"  train step {i + 1} ({be}, smollm-135m "
+              f"L{cfg.n_layers}, 8 x 64 tokens, 4 rows a data rank): loss "
+              f"{losses[i]:.6f} on every rank == one device's; ms by rank "
+              + ", ".join(f"{x['ms']:.1f}" for x in per)
+              + f" (one device, 2 microbatches: {ref['step_ms'][i]:.1f}); "
+              f"gathered a rank: params {per[0]['param_bytes'] / 1e9:.3f} "
+              f"GB, grads {per[0]['grad_bytes'] / 1e9:.3f} GB, state "
+              f"{per[0]['state_bytes'] / 1e9:.3f} GB; all-gather s by rank "
+              + ", ".join(f"{x['gather_s']:.2f}" for x in per)
+              + "; peak GiB by rank " + ", ".join(
+                  f"{x['peak_gb']:.2f}" if x["peak_gb"] is not None else "-"
+                  for x in per) + f" [{smi}]", flush=True)
+    launches = {k: sum(r["train_launches"][k] for r in ranks)
+                for k in ranks[0]["train_launches"]}
+    print(f"  checkpoints of steps 1-3 from the mesh (rank 0 wrote, every "
+          f"rank waited): restored onto one device, all {n_leaves} leaves "
+          f"bitwise the single-device steps' (last restore {restore_s:.2f} "
+          f"s); one more single-device step from step 2 == the mesh's step "
+          f"3, bit for bit; the ranks' steps launched " + ", ".join(
+              f"{k} {n}" for k, n in launches.items() if n), flush=True)
+    detail["shard_train"] = steps
+    del restored, p3, o3
+    return {"config": {"arch": cfg.name, "n_layers": cfg.n_layers,
+                       "param_dtype": str(cfg.param_dtype),
+                       "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+                       "rows_per_data_rank": TRAIN_BATCH // SHARD_MESH[0],
+                       "lr": ocfg.lr, "quantized_state": True},
+            "steps": steps, "leaves_bitwise": n_leaves,
+            "restore_s": restore_s, "launches": launches, "card": smi}
+
+
+def shard_pipeline_checks(ranks: list, dev: str) -> dict:
+    """Phase 16 (e) in the parent: every rank's pipeline result equals its
+    sequential loop bit for bit, and K2[deficit] ran on every rank."""
+    smi = smi_line() if dev == "cuda" else "cpu"
+    for r in ranks:
+        check(r["pipeline"]["bitwise"], f"shard pipeline: rank {r['rank']}'s "
+              "result differs from the sequential loop of its 4 layers")
+        check(dev != "cuda"
+              or r["pipeline_launches"]["fused_matmul[deficit]"] > 0,
+              f"shard pipeline: rank {r['rank']} launched no K2[deficit]")
+    p = ranks[0]["pipeline"]
+    ms = [r["pipeline"]["ms"] for r in ranks]
+    print(f"  pipeline: 4 stages of a quantized dense (K2[deficit], relu), "
+          f"{p['shape'][0]} microbatches of {p['shape'][1]} x "
+          f"{p['shape'][2]} x {p['shape'][3]}, {p['ticks']} ticks: every "
+          f"rank bitwise the sequential loop; ms by rank "
+          + ", ".join(f"{v:.1f}" for v in ms) + f" [{smi}]", flush=True)
+    return {**p, "ms_by_rank": ms, "card": smi,
+            "launches_by_rank": [r["pipeline_launches"]
+                                 ["fused_matmul[deficit]"] for r in ranks]}
 
 
 # ---------------------------------------------------------------------------
@@ -3417,8 +3736,10 @@ def ssm_phase(torch, detail, dev: str, full: bool, ops=None) -> tuple:
 
 TRAIN_BATCH, TRAIN_SEQ = TRAIN_ROWS
 # (a) the fault-tolerant loop: a checkpoint every TRAIN_CKPT steps, a
-# failure injected after step TRAIN_FAIL, the rerun resumes from step 8
-TRAIN_STEPS, TRAIN_CKPT, TRAIN_FAIL = 12, 4, 9
+# failure injected after step TRAIN_FAIL, the rerun resumes from the last
+# checkpoint before it
+TRAIN_STEPS, TRAIN_CKPT, TRAIN_FAIL = 6, 2, 4
+TRAIN_RESUME = TRAIN_FAIL // TRAIN_CKPT * TRAIN_CKPT
 TRAIN_CKPT_DIR = ROOT / "build" / "train_ckpt"
 # the example's run: it crashes after step 0 (2 * 1 // 3), before its
 # first checkpoint (every 10 steps), so its rerun starts from step 0 (a
@@ -3430,7 +3751,7 @@ TRAIN_ARCHS = {"smollm-135m": (None, 134_515_008),
                "deepseek-v2-236b": (1, 5_100_911_616),
                "rwkv6-3b": (None, 3_099_527_680),
                "hymba-1.5b": (None, 1_345_537_600)}
-ARCH_TRAIN_STEPS = 3         # on one batch
+ARCH_TRAIN_STEPS = 2         # on one batch
 # quantized AdamW damps its first updates (its v starts at 0.25: ROADMAP
 # queue C), so that at 1e-3 gemma3's bf16 weights barely move in 3 steps
 TRAIN_LR = 1e-2
@@ -3457,9 +3778,9 @@ class CheckpointRecorder:
         self.saved = (M.save, M._write)
         rec = self
 
-        def save(mgr, step, tree):
+        def save(mgr, step, tree, *mesh):
             t0 = time.perf_counter()
-            rec.saved[0](mgr, step, tree)
+            rec.saved[0](mgr, step, tree, *mesh)
             rec.save_s[step] = time.perf_counter() - t0
 
         def write(mgr, step, host):
@@ -3494,8 +3815,8 @@ def train_loop_check(torch, detail, dev: str, full: bool) -> dict:
     """Part (a): the fault-tolerant loop on smollm-135m at its published
     width (``full``; else the 2-layer, 64-wide smollm on the CPU): QAT,
     quantized AdamW, two microbatches. The first run raises after step
-    TRAIN_FAIL; the rerun resumes from step 8 and runs 4 steps; every
-    leaf restored from step 8 equals the host copy that was saved, bit
+    TRAIN_FAIL; the rerun resumes from step TRAIN_RESUME and runs the
+    rest; every leaf restored from that step equals the host copy saved, bit
     for bit; the loss is finite and falls."""
     import io
     from repro_torch.configs import registry
@@ -3539,9 +3860,11 @@ def train_loop_check(torch, detail, dev: str, full: bool) -> dict:
         r"\[train\] step +\d+ loss (\S+)", log.getvalue())]
     check(len(first_losses) == TRAIN_FAIL,
           f"train loop: {len(first_losses)} logged losses before the crash")
-    check(sorted(rec.write_s) == [4, 8, 12],
+    check(sorted(rec.write_s) == list(range(TRAIN_CKPT, TRAIN_STEPS + 1,
+                                            TRAIN_CKPT)),
           f"train loop: saved steps {sorted(rec.write_s)}")
-    check(out["resumed_from"] == 8 and len(out["losses"]) == 4,
+    check(out["resumed_from"] == TRAIN_RESUME
+          and len(out["losses"]) == TRAIN_STEPS - TRAIN_RESUME,
           f"train loop: resumed from {out['resumed_from']} with "
           f"{len(out['losses'])} losses")
     losses = first_losses + out["losses"]
@@ -3549,16 +3872,16 @@ def train_loop_check(torch, detail, dev: str, full: bool) -> dict:
     check(out["losses"][-1] < first_losses[0],
           f"train loop: loss did not fall {losses}")
 
-    # every leaf of step 8, restored onto the device, against its host copy
+    # every leaf of the resumed step, restored onto the device, against its host copy
     like = {"params": out["params"], "opt": out["opt_state"]}
     _sync(torch, dev)
     t0 = time.perf_counter()
-    restored = CK.CheckpointManager(TRAIN_CKPT_DIR).restore(8, like)
+    restored = CK.CheckpointManager(TRAIN_CKPT_DIR).restore(TRAIN_RESUME, like)
     _sync(torch, dev)
     restore_s = time.perf_counter() - t0
     from repro_torch.optim.adamw import flatten
     pairs = flatten(restored)
-    saved = rec.host[8]
+    saved = rec.host[TRAIN_RESUME]
     check([n for n, _, _ in saved] == ["/".join(map(str, p))
                                        for p, _ in pairs],
           "train loop: the restored leaves are not the saved ones")
@@ -3568,7 +3891,8 @@ def train_loop_check(torch, detail, dev: str, full: bool) -> dict:
         got, got_dtype = CK._to_numpy(t)
         check(got_dtype == dtype and got.shape == arr.shape
               and np.array_equal(got.view(np.uint8), arr.view(np.uint8)),
-              f"train loop: {name} restored from step 8 differs from the "
+              f"train loop: {name} restored from step {TRAIN_RESUME} differs "
+              "from the "
               "tensor saved")
         dtypes.add(dtype)
     check({"bfloat16", "int8", "int32", "float32"} <= dtypes,
@@ -3585,9 +3909,12 @@ def train_loop_check(torch, detail, dev: str, full: bool) -> dict:
             "losses_after_resume": out["losses"],
             "resumed_from": out["resumed_from"],
             "step_ms_host": gaps, "ms_per_step": statistics.median(gaps),
-            "save": {"step": 8, "blocking_s": rec.save_s[8],
-                     "write_s": rec.write_s[8], "bytes": rec.bytes[8]},
-            "restore": {"step": 8, "s": restore_s, "bytes": rec.bytes[8],
+            "save": {"step": TRAIN_RESUME,
+                     "blocking_s": rec.save_s[TRAIN_RESUME],
+                     "write_s": rec.write_s[TRAIN_RESUME],
+                     "bytes": rec.bytes[TRAIN_RESUME]},
+            "restore": {"step": TRAIN_RESUME, "s": restore_s,
+                        "bytes": rec.bytes[TRAIN_RESUME],
                         "leaves": len(pairs), "bitwise": True,
                         "dtypes": sorted(dtypes)}}
     line["step_cost"] = step_bound(
@@ -3598,8 +3925,10 @@ def train_loop_check(torch, detail, dev: str, full: bool) -> dict:
           f"resumed from step {out['resumed_from']}; loss "
           f"{first_losses[0]:.4f} -> {out['losses'][-1]:.4f}; "
           f"{line['ms_per_step']:.1f} ms per step (host, median of "
-          f"{len(gaps)}); save of step 8: {rec.bytes[8]:,} bytes, "
-          f"{rec.save_s[8]:.3f} s blocking + {rec.write_s[8]:.3f} s "
+          f"{len(gaps)}); save of step {TRAIN_RESUME}: "
+          f"{rec.bytes[TRAIN_RESUME]:,} bytes, "
+          f"{rec.save_s[TRAIN_RESUME]:.3f} s blocking + "
+          f"{rec.write_s[TRAIN_RESUME]:.3f} s "
           f"written; restore {restore_s:.3f} s; all {len(pairs)} leaves "
           f"({', '.join(sorted(dtypes))}) bitwise the saved ones",
           flush=True)

@@ -9,10 +9,23 @@ batch 8 x 64) also fits the CPU.
 
 Run:  PYTHONPATH=src python -m repro_torch.examples.lm_train \\
           [--steps 60] [--crash] [--model-scale tiny|100m] [--device cpu]
+
+Over a mesh (``--mesh data,model``) every rank that ``python -m
+torch.distributed.run`` starts runs this script: ``train(mesh=)`` keeps
+its shards of the params and AdamW state, takes its block of each batch
+with one microbatch a rank (bitwise the single-device run's two
+microbatches when 'data' has two positions) and writes the checkpoints
+from one rank. The process group's backend is ``--dist-backend`` (gloo
+lets ranks share a card or run on the CPU):
+
+      PYTHONPATH=src python -m torch.distributed.run --standalone \\
+          --nproc-per-node 4 -m repro_torch.examples.lm_train --mesh \\
+          data,model --dist-backend gloo [--device cpu]
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import os
 import tempfile
 
@@ -42,7 +55,28 @@ def main(argv=None) -> dict:
     ap.add_argument("--ckpt-dir", default=os.path.join(
         tempfile.gettempdir(), "repro_torch_lm_ckpt"))
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--mesh", default=None, metavar="AXES",
+                    help="train over a mesh with these axis names (e.g. "
+                         "data,model) of the torch.distributed.run ranks")
+    ap.add_argument("--dist-backend", default=None, choices=["nccl", "gloo"],
+                    help="the process group's backend (required with "
+                         "--mesh)")
     args = ap.parse_args(argv)
+    mesh = None
+    if args.mesh:
+        from repro_torch.launch.mesh import join_mesh
+        mesh = join_mesh(args.mesh, args.dist_backend,
+                         torch.device(args.device).type)
+    try:
+        return run(args, mesh)
+    finally:
+        if mesh is not None:
+            torch.distributed.destroy_process_group()
+
+
+def run(args, mesh) -> dict:
+    say = (print if mesh is None or torch.distributed.get_rank() == 0
+           else (lambda *a, **k: None))
 
     cfg, batch, seq = config(args.model_scale)
     toks = synthetic.token_stream(512, seq + 1, cfg.vocab)
@@ -56,19 +90,19 @@ def main(argv=None) -> dict:
             i += 1
 
     tc = TrainConfig(steps=args.steps, ckpt_every=10, ckpt_dir=args.ckpt_dir,
-                     log_every=10, microbatches=2,
+                     log_every=10, microbatches=1 if mesh is not None else 2,
                      fail_at_step=(2 * args.steps // 3) if args.crash else -1)
     ocfg = adamw.AdamWConfig(lr=2e-3, quantized_state=True)
     try:
-        out = train(cfg, ocfg, tc, batches(), device=args.device)
+        out = train(cfg, ocfg, tc, batches(), device=args.device, mesh=mesh)
     except RuntimeError as e:
-        print(f"crashed as requested ({e}); resuming ...")
-        tc2 = TrainConfig(steps=args.steps, ckpt_every=10,
-                          ckpt_dir=args.ckpt_dir, log_every=10,
-                          microbatches=2)
-        out = train(cfg, ocfg, tc2, batches(), device=args.device)
-    print(f"final loss {out['losses'][-1]:.4f} "
-          f"(resumed_from={out['resumed_from']})")
+        if "injected failure" not in str(e):
+            raise
+        say(f"crashed as requested ({e}); resuming ...")
+        tc2 = dataclasses.replace(tc, fail_at_step=-1)
+        out = train(cfg, ocfg, tc2, batches(), device=args.device, mesh=mesh)
+    say(f"final loss {out['losses'][-1]:.4f} "
+        f"(resumed_from={out['resumed_from']})")
     return out
 
 

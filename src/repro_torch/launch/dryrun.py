@@ -50,10 +50,22 @@ equal). A windowed arch's ring takes at most its window of
 prompt tokens (``nn.attention`` refuses more), so its prefill cell counts
 a cache-free prefill: the same products, no cache written.
 
+With ``--mesh 16x16`` or ``--mesh 2x16x16`` (the JAX package's production
+meshes, ``launch.mesh.production_layout``, planned: no rank runs) each
+record also holds ``state_bytes_per_rank``: one rank's shards of the
+parameters, gradients, optimizer state, caches and inputs by the JAX
+package's shardings (``launch.specs`` with ``mesh=``), and whether they
+fit the card's memory. Such records are tagged ``..._mesh16x16`` and sit
+beside the single-card ones, never over them. They count the state at
+rest: the port's own sharded step (``train.steps``) gathers the whole
+parameters and gradients on every rank for the length of a step.
+
 Usage:
   python -m repro_torch.launch.dryrun --arch smollm-135m --shape train_4k
   python -m repro_torch.launch.dryrun --shape decode_32k      # every arch
   python -m repro_torch.launch.dryrun --all [--quant approx_deficit_pallas]
+  python -m repro_torch.launch.dryrun --arch kimi-k2-1t-a32b --shape \
+      train_4k --mesh 2x16x16
 """
 from __future__ import annotations
 
@@ -461,9 +473,43 @@ def state_bytes(cfg: ArchConfig, shape: str) -> Dict[str, int]:
     return out
 
 
+def state_bytes_per_rank(cfg: ArchConfig, shape: str, layout,
+                         rules=SP.DEFAULT_RULES) -> Dict[str, int]:
+    """One rank's bytes of a cell's state over ``layout`` (a
+    ``MeshLayout`` or ``DeviceMesh``) by the JAX package's shardings: its
+    shards of the parameters, of the gradients (sharded as the
+    parameters), of the optimizer state (int8 moments), of the caches and
+    of the inputs; ``total``, and ``fits`` against the card's memory."""
+    seq, batch, kind = registry.SHAPES[shape]
+    if kind == "train":
+        params, opt, pspec, ospec = SP.model_state_specs(
+            cfg, adamw.AdamWConfig(quantized_state=True), layout, rules)
+        p = SP.shard_nbytes(params, pspec, layout)
+        out = {"params": p, "grads": p,
+               "optimizer": SP.shard_nbytes(opt, ospec, layout),
+               "caches": 0}
+    else:
+        params, pspec = SP.model_state_specs(cfg, mesh=layout, rules=rules)
+        caches, cspec = SP.cache_specs(cfg, shape, mesh=layout, rules=rules)
+        out = {"params": SP.shard_nbytes(params, pspec, layout), "grads": 0,
+               "optimizer": 0,
+               "caches": SP.shard_nbytes(caches, cspec, layout)}
+    inputs, ispec = SP.input_specs(cfg, shape, layout, rules)
+    out["inputs"] = SP.shard_nbytes(inputs, ispec, layout)
+    out["total"] = sum(out.values())
+    out["fits"] = out["total"] <= mesh.DEVICE_MEMORY_BYTES
+    return out
+
+
+MESHES = {"16x16": False, "2x16x16": True}     # --mesh: multi_pod
+
+
 def run_cell(arch: str, shape: str, quant: str = "bf16",
-             out_dir: Path = OUT_DIR) -> dict:
-    """Count one (arch x shape) cell and write its record."""
+             out_dir: Path = OUT_DIR, mesh_name: Optional[str] = None
+             ) -> dict:
+    """Count one (arch x shape) cell and write its record; with
+    ``mesh_name`` (a key of MESHES) also its per-rank state on that
+    production mesh, under a tag of its own."""
     cfg = registry.get(arch)
     if quant != "bf16":
         cfg = dataclasses.replace(cfg, quant=for_lm(quant))
@@ -473,13 +519,20 @@ def run_cell(arch: str, shape: str, quant: str = "bf16",
     t0 = time.perf_counter()
     cost = step_cost(cfg, kind, batch, seq, microbatches=mb)
     state = state_bytes(cfg, shape)
-    tag = f"{arch}_{shape}" + (f"_{quant}" if quant != "bf16" else "")
+    tag = f"{arch}_{shape}" + (f"_{quant}" if quant != "bf16" else "") + (
+        f"_mesh{mesh_name}" if mesh_name else "")
     rec = {"arch": arch, "shape": shape, "kind": kind, "seq": seq,
            "batch": batch, "quant": quant, "tag": tag, **cost,
            "state_bytes": state,
            "fits_one_card": state["total"] <= mesh.DEVICE_MEMORY_BYTES,
-           "device_memory_bytes": mesh.DEVICE_MEMORY_BYTES,
-           "host_s": time.perf_counter() - t0}
+           "device_memory_bytes": mesh.DEVICE_MEMORY_BYTES}
+    if mesh_name:
+        layout = mesh.production_layout(MESHES[mesh_name])
+        rec["mesh"] = {"name": mesh_name, "axes": list(layout.mesh_dim_names),
+                       "shape": list(layout.shape)}
+        rec["state_bytes_per_rank"] = state_bytes_per_rank(cfg, shape,
+                                                           layout)
+    rec["host_s"] = time.perf_counter() - t0
     out_dir.mkdir(parents=True, exist_ok=True)
     (out_dir / f"{tag}.json").write_text(json.dumps(rec, indent=1))
     print(f"[OK] {arch:24s} {shape:12s} flops={rec['flops']:.4e} "
@@ -488,7 +541,11 @@ def run_cell(arch: str, shape: str, quant: str = "bf16",
           f"bound={rec['bound_ms']:.3f}ms ({rec['bound_by']}) "
           f"state={state['total'] / 2 ** 30:.2f}GiB "
           f"fits_one_card={rec['fits_one_card']} "
-          f"host={rec['host_s']:.1f}s", flush=True)
+          + (f"per_rank={rec['state_bytes_per_rank']['total'] / 2 ** 30:.2f}"
+             f"GiB on {mesh_name} "
+             f"fits={rec['state_bytes_per_rank']['fits']} "
+             if mesh_name else "")
+          + f"host={rec['host_s']:.1f}s", flush=True)
     return rec
 
 
@@ -511,13 +568,16 @@ def main(argv=None) -> int:
                     help="backend of the projections (bf16: float)")
     ap.add_argument("--out", type=Path, default=OUT_DIR,
                     help="directory of the records")
+    ap.add_argument("--mesh", default=None, choices=sorted(MESHES),
+                    help="also count each rank's state on this production "
+                         "mesh (records tagged _mesh<name>)")
     args = ap.parse_args(argv)
     todo = cells(args.arch, args.shape, args.all)
     t0 = time.perf_counter()
     failures = []
     for a, s in todo:
         try:
-            run_cell(a, s, args.quant, args.out)
+            run_cell(a, s, args.quant, args.out, args.mesh)
         except Exception as e:                      # noqa: BLE001
             traceback.print_exc()
             failures.append((a, s, repr(e)))

@@ -14,9 +14,11 @@ over the ranks of an initialised process group (``init_distributed``
 joins the one ``torch.distributed.run`` describes, with the backend the
 caller names). ``make_host_mesh`` is the 1 x 1 mesh of a single process,
 a ``MeshLayout`` that no process group backs: a mesh of one position
-serves and multiplies unsharded. The JAX package's
-``make_production_mesh`` (its TPU pod shapes) waits for the training
-slice over a mesh (ROADMAP.md queue A, item 23).
+serves, multiplies and trains unsharded. ``make_production_mesh`` builds
+the JAX package's production shapes, (16, 16) ('data', 'model') and (2,
+16, 16) ('pod', 'data', 'model'), over a world of 256 or 512 ranks;
+``production_layout`` plans them without ranks (the dry-run's per-rank
+state, ``launch.dryrun --mesh``).
 """
 from __future__ import annotations
 
@@ -25,7 +27,7 @@ import os
 import torch
 import torch.distributed as dist
 
-from repro_torch.parallel.sharding import MeshLayout
+from repro_torch.parallel.sharding import MeshLayout, mesh_positions
 
 # Device memory: 80 GB of HBM3 at 3.35 TB/s.
 HBM_BYTES_PER_S = 3.35e12
@@ -142,6 +144,53 @@ def make_serving_mesh(shape=None, axis_names=("data", "model"),
     from torch.distributed.device_mesh import DeviceMesh
     return DeviceMesh(device_type, torch.arange(total).reshape(shape),
                       mesh_dim_names=tuple(axis_names))
+
+
+def join_mesh(axes: str, backend, device_type: str = "cuda"):
+    """The mesh that a CLI's ``--mesh AXES`` (e.g. "data,model") names over
+    the ranks of ``python -m torch.distributed.run``: the process group
+    joined over ``backend`` (``init_distributed``), then the whole world by
+    ``serving_shape``. Exits with an error message where there is no
+    backend or no process group to join."""
+    if backend is None:
+        raise SystemExit("--mesh needs --dist-backend nccl|gloo")
+    try:
+        init_distributed(backend, device_type)
+    except (RuntimeError, ValueError) as e:
+        raise SystemExit(f"--mesh: {e}") from None
+    return make_serving_mesh(None, tuple(axes.split(",")), device_type)
+
+
+PRODUCTION = {False: ((16, 16), ("data", "model")),
+              True: ((2, 16, 16), ("pod", "data", "model"))}
+
+
+def production_layout(multi_pod: bool = False) -> MeshLayout:
+    """The JAX package's production mesh, (16, 16) ('data', 'model') or
+    with ``multi_pod`` (2, 16, 16) ('pod', 'data', 'model'), as a layout
+    without ranks."""
+    shape, axes = PRODUCTION[bool(multi_pod)]
+    return MeshLayout(axes, shape)
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         device_type: str = "cuda"):
+    """The production mesh (``production_layout``) as a ``DeviceMesh`` over
+    the initialised world, which must have exactly its 256 (or 512) ranks:
+    any other world raises ``ValueError`` naming its size. Every rank
+    calls it."""
+    if not dist.is_initialized():
+        raise RuntimeError("make_production_mesh needs an initialised "
+                           "process group (init_distributed)")
+    layout = production_layout(multi_pod)
+    want, n = mesh_positions(layout), dist.get_world_size()
+    if n != want:
+        raise ValueError(
+            f"the production mesh {layout.shape} {layout.mesh_dim_names} "
+            f"takes a world of {want} ranks; this world has {n}")
+    from torch.distributed.device_mesh import DeviceMesh
+    return DeviceMesh(device_type, torch.arange(n).reshape(layout.shape),
+                      mesh_dim_names=layout.mesh_dim_names)
 
 
 def make_host_mesh() -> MeshLayout:

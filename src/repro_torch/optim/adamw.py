@@ -141,18 +141,29 @@ def _dequantize_v(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     return v.reshape(*q.shape[:-1], -1)[..., :last]
 
 
-def _global_norm(leaves) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(x.to(torch.float32)))
-                          for x in leaves))
+def global_norm(leaves) -> torch.Tensor:
+    """The float32 L2 norm over every element of ``leaves``, leaf sums
+    added in the given order. Each leaf is summed in row-major order (made
+    contiguous first): a reduction follows the memory layout, and autograd
+    may return a gradient in a transposed one, so the norm is a function of
+    the values alone, whatever their strides (a sharded step's gradients
+    arrive contiguous from the gather)."""
+    return torch.sqrt(sum(torch.sum(torch.square(
+        x.to(torch.float32).contiguous())) for x in leaves))
 
 
 @torch.no_grad()
-def update(grads, state, params, cfg: AdamWConfig):
-    """One AdamW step. Returns (new_params, new_state)."""
+def update(grads, state, params, cfg: AdamWConfig, grad_norm=None):
+    """One AdamW step. Returns (new_params, new_state). ``grad_norm``, the
+    clip's global norm, defaults to ``global_norm`` of ``grads``; a
+    sharded step passes the norm of the whole gradient and updates its
+    shards (every step of the update is elementwise or per block of the
+    last dim)."""
     count = state["count"] + 1
     cf = count[0].to(torch.float32)
     flat_g = flatten(grads)
-    gnorm = _global_norm([g for _, g in flat_g])
+    gnorm = (global_norm([g for _, g in flat_g]) if grad_norm is None
+             else grad_norm)
     if cfg.grad_clip:
         # a tensor numerator: python / tensor would multiply by a rounded
         # reciprocal instead of dividing

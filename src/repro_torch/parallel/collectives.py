@@ -11,7 +11,8 @@ uses:
     order (two's-complement addition wraps the same way whatever the
     order).
 
-Nothing adds floats across ranks.
+Nothing adds floats across ranks. (``barrier`` moves no data: a
+checkpoint written by one rank is published before any rank goes on.)
 
 Backends. The caller names the process group's backend; nothing here
 switches it. NCCL takes one rank per card. On one card several ranks share
@@ -34,10 +35,12 @@ import queue
 import tempfile
 import time
 import traceback
-from typing import Any, Callable, List, Optional, Sequence
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
+
+from repro_torch.parallel.sharding import entry_axes, map_specs
 
 STATS: collections.Counter = collections.Counter()
 
@@ -102,6 +105,17 @@ def all_reduce_int32(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
     return x
 
 
+def barrier(mesh) -> None:
+    """Return once every rank of ``mesh`` has called it: a barrier over
+    each axis group in turn. A rank past the last axis's barrier knows
+    that its group there passed the one before, whose groups passed the
+    one before that, and so on: every rank of the mesh has arrived."""
+    for axis in mesh.mesh_dim_names:
+        group = mesh.get_group(axis)
+        if dist.get_world_size(group) > 1:
+            dist.barrier(group=group)
+
+
 def agree(values: Sequence[int], mesh, what: str = "values") -> None:
     """Raise unless every rank of ``mesh`` holds the same ``values``:
     each axis group gathers them, and agreement along every axis is
@@ -116,6 +130,61 @@ def agree(values: Sequence[int], mesh, what: str = "values") -> None:
             raise RuntimeError(
                 f"ranks disagree on the {what} along {axis!r}: "
                 f"{[p.tolist() for p in parts]}")
+
+
+# ---------------------------------------------------------------------------
+# Trees of shards, gathered
+# ---------------------------------------------------------------------------
+
+def _gathers(spec, skip_dim=None) -> List[Tuple[int, str]]:
+    """The (dim, mesh axis) all-gathers that rebuild a leaf sharded by
+    ``spec`` (every sharded dim but ``skip_dim``), in order: dims
+    ascending, the minor mesh axis first within a dim, so that blocks land
+    in place."""
+    return [(d, ax) for d, entry in enumerate(spec)
+            if entry is not None and d != skip_dim
+            for ax in reversed(entry_axes(entry))]
+
+
+def gather_leaves(xs, specs, mesh, skip_dim=None) -> list:
+    """The inverse of ``slice_leaf`` over many leaves: all-gather each
+    shard back to the full tensor along every sharded dim but
+    ``skip_dim``. Byte movement, coalesced: each round packs every leaf's
+    next gather over one axis into one collective."""
+    xs = list(xs)
+    plans = [_gathers(s, skip_dim) for s in specs]
+    stage = 0
+    while True:
+        groups: Dict[str, List[int]] = {}
+        for i, plan in enumerate(plans):
+            if stage < len(plan):
+                groups.setdefault(plan[stage][1], []).append(i)
+        if not groups:
+            return xs
+        for axis in sorted(groups):
+            idx = groups[axis]
+            parts = all_gather_many([xs[i] for i in idx],
+                                    mesh.get_group(axis))
+            for i, ps in zip(idx, parts):
+                xs[i] = torch.cat(ps, dim=plans[i][stage][0])
+        stage += 1
+
+
+def gather_tree(tree, specs, mesh, skip_dim=None):
+    """``gather_leaves`` over a tree of leaves and its spec tree."""
+    leaves, flat = [], []
+    map_specs(lambda t, s: (leaves.append(t), flat.append(s)), tree, specs)
+    it = iter(gather_leaves(leaves, flat, mesh, skip_dim))
+    return map_specs(lambda t, s: next(it), tree, specs)
+
+
+def gather_stack(x, mesh, axes):
+    """Every position's ``x`` over ``axes``, stacked on a new leading dim
+    in combined index order (major axis first)."""
+    out = x[None]
+    for ax in reversed(axes):
+        out = torch.cat(all_gather_bytes(out, mesh.get_group(ax)))
+    return out
 
 
 # ---------------------------------------------------------------------------

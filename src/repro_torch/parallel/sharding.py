@@ -161,3 +161,42 @@ def mesh_axis_size(axis: str, mesh) -> int:
     if mesh is None:
         return 1
     return axis_sizes(mesh).get(axis, 1)
+
+
+# ---------------------------------------------------------------------------
+# Trees of shards
+# ---------------------------------------------------------------------------
+
+def map_specs(fn, tree, specs, *more):
+    """``fn(leaf, spec, *more_leaves)`` over the tensor leaves of ``tree``
+    and the spec tuples of ``specs`` (the same dicts and lists)."""
+    if isinstance(tree, dict):
+        return {k: map_specs(fn, tree[k], specs[k], *(m[k] for m in more))
+                for k in tree}
+    if isinstance(tree, list):
+        return [map_specs(fn, t, s, *m)
+                for t, s, *m in zip(tree, specs, *more)]
+    return fn(tree, specs, *more)
+
+
+def position(mesh, axes) -> Tuple[int, int]:
+    """This rank's combined index over ``axes`` (major first), and their
+    combined size."""
+    sizes = axis_sizes(mesh)
+    idx, n = 0, 1
+    for a in axes:
+        idx = idx * sizes[a] + mesh.get_local_rank(a)
+        n *= sizes[a]
+    return idx, n
+
+
+def slice_leaf(x, spec, mesh, skip_dim=None):
+    """This rank's shard of the full ``x`` by ``spec`` (every sharded dim
+    but ``skip_dim``): a view."""
+    for d, entry in enumerate(spec):
+        if entry is None or d == skip_dim:
+            continue
+        idx, n = position(mesh, entry_axes(entry))
+        loc = x.shape[d] // n
+        x = x.narrow(d, idx * loc, loc)
+    return x

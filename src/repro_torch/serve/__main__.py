@@ -105,15 +105,8 @@ def parse_args(argv=None):
 def join_mesh(args):
     """The mesh of ``--mesh`` over the ranks of ``torch.distributed.run``;
     exits with an error where there is no process group to join."""
-    from repro_torch.launch.mesh import init_distributed, make_serving_mesh
-    if args.dist_backend is None:
-        raise SystemExit("--mesh needs --dist-backend nccl|gloo")
-    dev = torch.device(args.device).type
-    try:
-        init_distributed(args.dist_backend, dev)
-    except (RuntimeError, ValueError) as e:
-        raise SystemExit(f"--mesh: {e}") from None
-    return make_serving_mesh(None, tuple(args.mesh.split(",")), dev)
+    from repro_torch.launch.mesh import join_mesh as join
+    return join(args.mesh, args.dist_backend, torch.device(args.device).type)
 
 
 def main(argv=None) -> dict:

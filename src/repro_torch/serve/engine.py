@@ -76,9 +76,12 @@ from repro_torch.models import transformer_lm as TLM
 from repro_torch.models.transformer_lm import ArchConfig
 from repro_torch.nn.module import param_shardings, resolve_device
 from repro_torch.parallel import collectives as C
+from repro_torch.parallel.collectives import (gather_leaves, gather_stack,
+                                              gather_tree)
 from repro_torch.parallel.sharding import (DEFAULT_RULES, ShardingRules,
-                                           axis_sizes, entry_axes,
-                                           mesh_positions, prune_spec)
+                                           entry_axes, map_specs,
+                                           mesh_positions, position,
+                                           prune_spec, slice_leaf)
 from repro_torch.serve.metrics import RequestTiming, summarize
 from repro_torch.serve.paging import PrefixCache
 from repro_torch.serve.sampling import GREEDY, SamplingConfig, sample_token
@@ -136,92 +139,6 @@ def check_servable(cfg: ArchConfig) -> None:
 # Engine over a mesh: sharded storage, the single-device model per rank
 # ---------------------------------------------------------------------------
 
-def map_specs(fn, tree, specs, *more):
-    """``fn(leaf, spec, *more_leaves)`` over the tensor leaves of ``tree``
-    and the spec tuples of ``specs`` (the same dicts and lists)."""
-    if isinstance(tree, dict):
-        return {k: map_specs(fn, tree[k], specs[k], *(m[k] for m in more))
-                for k in tree}
-    if isinstance(tree, list):
-        return [map_specs(fn, t, s, *m)
-                for t, s, *m in zip(tree, specs, *more)]
-    return fn(tree, specs, *more)
-
-
-def _position(mesh, axes) -> Tuple[int, int]:
-    """This rank's combined index over ``axes`` (major first), and their
-    combined size."""
-    sizes = axis_sizes(mesh)
-    idx, n = 0, 1
-    for a in axes:
-        idx = idx * sizes[a] + mesh.get_local_rank(a)
-        n *= sizes[a]
-    return idx, n
-
-
-def slice_leaf(x, spec, mesh, skip_dim=None):
-    """This rank's shard of the full ``x`` by ``spec`` (every sharded dim
-    but ``skip_dim``): a view."""
-    for d, entry in enumerate(spec):
-        if entry is None or d == skip_dim:
-            continue
-        idx, n = _position(mesh, entry_axes(entry))
-        loc = x.shape[d] // n
-        x = x.narrow(d, idx * loc, loc)
-    return x
-
-
-def _gathers(spec, skip_dim=None) -> List[Tuple[int, str]]:
-    """The (dim, mesh axis) all-gathers that rebuild a leaf sharded by
-    ``spec`` (every sharded dim but ``skip_dim``), in order: dims
-    ascending, the minor mesh axis first within a dim, so that blocks land
-    in place."""
-    return [(d, ax) for d, entry in enumerate(spec)
-            if entry is not None and d != skip_dim
-            for ax in reversed(entry_axes(entry))]
-
-
-def gather_leaves(xs, specs, mesh, skip_dim=None) -> list:
-    """The inverse of ``slice_leaf`` over many leaves: all-gather each
-    shard back to the full tensor along every sharded dim but
-    ``skip_dim``. Byte movement, coalesced: each round packs every leaf's
-    next gather over one axis into one collective."""
-    xs = list(xs)
-    plans = [_gathers(s, skip_dim) for s in specs]
-    stage = 0
-    while True:
-        groups: Dict[str, List[int]] = {}
-        for i, plan in enumerate(plans):
-            if stage < len(plan):
-                groups.setdefault(plan[stage][1], []).append(i)
-        if not groups:
-            return xs
-        for axis in sorted(groups):
-            idx = groups[axis]
-            parts = C.all_gather_many([xs[i] for i in idx],
-                                      mesh.get_group(axis))
-            for i, ps in zip(idx, parts):
-                xs[i] = torch.cat(ps, dim=plans[i][stage][0])
-        stage += 1
-
-
-def gather_tree(tree, specs, mesh, skip_dim=None):
-    """``gather_leaves`` over a tree of leaves and its spec tree."""
-    leaves, flat = [], []
-    map_specs(lambda t, s: (leaves.append(t), flat.append(s)), tree, specs)
-    it = iter(gather_leaves(leaves, flat, mesh, skip_dim))
-    return map_specs(lambda t, s: next(it), tree, specs)
-
-
-def gather_stack(x, mesh, axes):
-    """Every position's ``x`` over ``axes``, stacked on a new leading dim
-    in combined index order (major axis first)."""
-    out = x[None]
-    for ax in reversed(axes):
-        out = torch.cat(C.all_gather_bytes(out, mesh.get_group(ax)))
-    return out
-
-
 def _sharded(spec, skip_dim=None) -> bool:
     return any(e is not None and d != skip_dim for d, e in enumerate(spec))
 
@@ -265,7 +182,7 @@ class MeshPlan:
         spec = prune_spec((n,), self.rules.spec(("batch",), self.mesh),
                           self.mesh)
         axes = entry_axes(spec[0]) if spec else ()
-        idx, parts = _position(self.mesh, axes)
+        idx, parts = position(self.mesh, axes)
         return axes, idx * (n // parts), n // parts
 
     # ---- storage ---------------------------------------------------------

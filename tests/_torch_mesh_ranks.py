@@ -236,3 +236,12 @@ def serve_rank(rank: int, params_np, backends, workloads, spec_backends):
         res[("spec", backend)] = (out == ref, stats["spec_passes"] > 0,
                                   eng.prefix_hit_tokens >= 8)
     return res
+
+
+def world_rank(rank: int, jobs: dict) -> dict:
+    """Every job of the session's shared test world (tests/_torch_world.py)
+    on this rank, in turn: {name: (module, function, args)} -> {name:
+    function(rank, *args)}."""
+    import importlib
+    return {name: getattr(importlib.import_module(module), fn)(rank, *args)
+            for name, (module, fn, args) in jobs.items()}

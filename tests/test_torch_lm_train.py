@@ -175,16 +175,29 @@ def test_qat_forward_loss_matches_reference(backend):
     assert not torch.equal(got, plain), "qat changed nothing"
 
 
+QAT_LR = 2e-3
+
+
+@functools.lru_cache(maxsize=None)
+def reference_qat_step(microbatches: int):
+    """The JAX package's jitted ``make_train_step(qat=True)`` at
+    ``microbatches`` from ``_tiny()``'s weights on ``_batch()``, AdamW at
+    QAT_LR with float32 moments: (params, opt_state, metrics). Shared with
+    tests/test_torch_train_mesh.py, whose mesh step takes the same batch."""
+    rcfg, _, rparams = _tiny()
+    rocfg = RA.AdamWConfig(lr=QAT_LR)
+    rstep = jax.jit(RS.make_train_step(rcfg, rocfg, qat=True,
+                                       num_microbatches=microbatches))
+    return rstep(jax.tree.map(jnp.asarray, rparams),
+                 RA.init(RT.descs(rcfg), rocfg), _jax_batch(*_batch()))
+
+
 @pytest.mark.parametrize("microbatches", [1, 2])
 def test_qat_train_step_matches_reference(microbatches):
     rcfg, pcfg, rparams = _tiny()
     tokens, labels = _batch()
-    ocfg, rocfg = A.AdamWConfig(lr=2e-3), RA.AdamWConfig(lr=2e-3)
-    rstep = jax.jit(RS.make_train_step(rcfg, rocfg, qat=True,
-                                       num_microbatches=microbatches))
-    rp, _, rm = rstep(jax.tree.map(jnp.asarray, rparams),
-                      RA.init(RT.descs(rcfg), rocfg),
-                      _jax_batch(tokens, labels))
+    ocfg = A.AdamWConfig(lr=QAT_LR)
+    rp, _, rm = reference_qat_step(microbatches)
     tp = params_from_jax(rparams, device="cpu")
     step = ST.make_train_step(pcfg, ocfg, qat=True,
                               num_microbatches=microbatches)

@@ -1,7 +1,7 @@
 """The sharded serving engine (``Engine(mesh=)``) in a world of 4 gloo ranks
-on the CPU, a 2 x 2 ('data', 'model') mesh, spawned once for the module
-(``tests/_torch_mesh_ranks.serve_rank``; the ranks meet at a file under
-the module's temporary directory), on the JAX serving tests' reduced
+on the CPU, a 2 x 2 ('data', 'model') mesh (``tests/_torch_mesh_ranks.
+serve_rank``, a job of the session's shared world, tests/_torch_world.py),
+on the JAX serving tests' reduced
 smollm (2 layers, d_model 64, 4 heads / 2 KV heads of 16, d_ff 128, vocab
 64) with the JAX package's ``TLM.init`` weights at key 0.
 
@@ -29,11 +29,11 @@ import pytest
 
 import _torch_mesh_ranks as R
 import _torch_refs as REFS
+import _torch_world as W
 from repro.quant import matmul as RQM
 
 from repro_torch.convert import params_from_jax
 from repro_torch.models import transformer_lm as PT
-from repro_torch.parallel.collectives import run_world
 
 BACKENDS = ("bf16", "int8_exact", "approx_deficit_pallas",
             "approx_stage1_pallas", "approx_rank1_pallas")
@@ -55,8 +55,8 @@ def _odd(vocab=64):
             for rid, n in enumerate((3, 6, 4, 5))]
 
 
-@pytest.fixture(scope="module")
-def world(tmp_path_factory):
+def world_args() -> tuple:
+    """The arguments of ``serve_rank`` in the shared world."""
     assert R.TINY == REFS.TINY and R.MAX_LEN == REFS.MAX_LEN
     rparams = REFS.init(REFS.tiny_cfg())
     params = params_from_jax(jax.tree.map(np.asarray, rparams),
@@ -64,10 +64,12 @@ def world(tmp_path_factory):
     params_np = PT.map_leaves(lambda t: t.numpy(), params)
     workloads = {"shared": _shared(), "anchor": REFS.workload(),
                  "odd": _odd()}
-    init = f"file://{tmp_path_factory.mktemp('rdzv')}/rendezvous"
-    return run_world(R.serve_rank, 4, (params_np, BACKENDS, workloads,
-                                       SPEC_BACKENDS),
-                     init_method=init, timeout_s=600)
+    return params_np, BACKENDS, workloads, SPEC_BACKENDS
+
+
+@pytest.fixture(scope="module")
+def world(tmp_path_factory):
+    return W.world(tmp_path_factory)["serve"]
 
 
 def _rank_free(res):

@@ -1,7 +1,7 @@
 """Mesh-sharded quantized matmul (``repro_torch.quant.sharded``) in a world
-of 4 gloo ranks on the CPU, a 2 x 2 ('data', 'model') mesh, spawned once
-for the module (``tests/_torch_mesh_ranks.backends_rank``; the ranks meet
-at a file under the module's temporary directory).
+of 4 gloo ranks on the CPU, a 2 x 2 ('data', 'model') mesh
+(``tests/_torch_mesh_ranks.backends_rank``, a job of the session's shared
+world, tests/_torch_world.py).
 
 For every registered backend, each on its fused and (where it has one)
 unfused route, under every admissible (m, n, k) axis assignment (13, K
@@ -25,23 +25,26 @@ import numpy as np
 import pytest
 
 import _torch_mesh_ranks as R
+import _torch_world as W
 from repro.launch.mesh import make_serving_mesh
 from repro.quant import matmul as RQM
 from repro.quant import sharded as RQS
 from repro.quant.quantize import abs_max_scale, for_lm, quantize
 
-from repro_torch.parallel.collectives import run_world
 from repro_torch.quant import matmul as QM
 
 BACKENDS = list(QM.list_backends())
 RANDOM_CASES = 10
 
 
+def world_args() -> tuple:
+    """The arguments of ``backends_rank`` in the shared world."""
+    return (RANDOM_CASES,)
+
+
 @pytest.fixture(scope="module")
 def world(tmp_path_factory):
-    init = f"file://{tmp_path_factory.mktemp('rdzv')}/rendezvous"
-    return run_world(R.backends_rank, 4, (RANDOM_CASES,), init_method=init,
-                     timeout_s=300)
+    return W.world(tmp_path_factory)["backends"]
 
 
 def test_every_rank_agrees(world):
