@@ -33,12 +33,15 @@ Phases, each printing its seconds:
             1,000-token prefill, and at rwkv6-3b's and hymba-1.5b's decode
             shapes (SSM_LAYERS), at llama-3.2-vision-11b's and
             musicgen-large's decode shapes and llama's cross-attention K
-            and V over 4 x 1,601 encoder states (XATTN_LAYERS; at these
-            LM shapes each plain version is timed over the one call
-            checked), and at the
-            train path's shapes (TRAIN_LAYERS: every projection and head
-            of the seven trained archs at 8 x 64 tokens, each entry and
-            plain version timed over the one call checked); K3 and
+            and V over 4 x 1,601 encoder states (XATTN_LAYERS), at
+            qwen1.5-32b's, deepseek-coder-33b's and kimi-k2-1t-a32b's
+            decode shapes (DENSE_LAYERS; K up to 27,392, the qwen and
+            kimi heads, N 152,064 and 163,840, in RANK1's column tiles),
+            and at the train path's shapes (TRAIN_LAYERS: every
+            projection and head of the seven trained archs at 8 x 64
+            tokens; at all these LM shapes w is drawn on the card, and
+            each entry, plain version and RANK1 operand build is timed
+            over the one call checked and profiled once); K3 and
             K4 in 24 column tiles of a small
             budget; printing the CUDA-core plan
             (tile, K slices) of each; hold every backend's
@@ -128,8 +131,8 @@ Phases, each printing its seconds:
             approx_deficit_pallas, unpaged at exact prompt lengths
             (max_len 112: the window of 1,024 masks, no ring wraps), with
             the peak memory; then its first 6 layers (one 5:1 group, the
-            window as published) serve 4 requests of 1,012-1,020 prompt
-            tokens and 14-20 new into 2 slots at max_len 1,088, so that
+            window as published) serve 4 requests of 1,020-1,023 prompt
+            tokens and 6-8 new into 2 slots at max_len 1,088, so that
             decode wraps the rings, under bf16 and the three CUDA
             backends: deficit's and rank1's tokens and every sampled logits
             row bitwise equal; each CUDA backend equal to its oracle
@@ -154,7 +157,9 @@ Phases, each printing its seconds:
             of 64, state 16, window 1,024, SwiGLU d_ff 5,504; 1,345,537,600)
             at their published widths from seed 0: first the chunked WKV
             against the sequential recurrence at rwkv6's layer shape (150
-            steps, three chunks); then each whole model serves the serve
+            steps, three chunks); then the first SSM_SERVE_DEPTH (8) of
+            the 32 layers of each draw (the head whole; the depth is cut
+            to keep the script inside its time limit) serve the serve
             suite's workload (rwkv6 with one more request of a 150-token
             prompt: three WKV chunks, the last ragged, at max_len 192)
             unpaged at exact prompt lengths under bf16 and
@@ -287,22 +292,58 @@ Phases, each printing its seconds:
             mesh, each stage a quantized dense (relu) through K2[deficit] at
             576 x 576, 6 microbatches of 4 x 64 rows: bitwise the sequential
             loop of the same 4 layers on one device;
-17. launch counts, set to 0 before each of phases 4, 5 and 6 (the suite
+17. kimi   run after phase 13: kimi-k2-1t-a32b at its published widths at
+            depth 1 (d_model 7,168, 64 / 8 heads of 128, 384 experts of
+            2,048, top 8, one shared expert, vocab 163,840;
+            19,439,178,752 bf16 parameters from seed 0, 36.21 GiB; the
+            card's free memory printed and checked before the draw) on
+            the serve suite's workload with the prefix cache under bf16
+            and the three CUDA backends (a prefix hit and a mid-decode
+            admission each): each serving's step ms, TTFT, peak memory, a
+            fixed decode step's ms, busy, kernels, idle, launches and
+            step bound, and the distinct experts one step of 4 slots
+            reaches (at most 32 of 384: the bound's bytes_min assumes
+            min(E, rows x top_k)); then the workload's first CUT[0] (2)
+            requests with CUT[1] (6) new tokens each under bf16, the
+            oracles approx_lut and approx_stage1 and the three CUDA
+            backends (CUT_BACKENDS): each
+            CUDA backend's tokens and every sampled logits row bitwise
+            equal to its oracle's. The experts are float products in
+            both packages: the kernels run in the attention projections
+            and the head;
+18. dense  qwen1.5-32b (64 layers, d_model 5,120, 40 heads and 40 KV heads
+            of 128, SwiGLU d_ff 27,392, vocab 152,064, q, k, v biases;
+            35,197,096,960 parameters, 65.56 GiB) and deepseek-coder-33b
+            (62 layers, d_model 7,168, 56 / 8 heads of 128, d_ff 19,200,
+            vocab 32,256; 33,342,991,360, 62.11 GiB) whole at their
+            published widths from seed 0 (free memory printed and checked
+            before each draw; qwen's biases, zeros at init, drawn normal
+            x BIAS_SCALE at ARCH_SEED + 1 and their largest magnitude
+            printed): each serves the workload once under
+            approx_deficit_pallas with the prefix cache, with its step ms,
+            TTFT, peak memory and a fixed step's ms, busy, kernels, idle,
+            launches and step bound; then the first DENSE_DEPTH (4)
+            layers of the same draw (the head whole) serve the cut of
+            phase 17 under bf16, the oracles and the three CUDA backends:
+            each CUDA backend bitwise equal to its oracle (for qwen with
+            its nonzero biases);
+19. launch counts, set to 0 before each of phases 4, 5 and 6 (the suite
    runners' calls), 7 (the served runs), 8 (the speculative runs), the
-   served runs of 9, 10, 11 and 13, the STE steps of 12 and 13, the
-   examples' processes (each reports its own) and the shard ranks'
+   served runs of 9, 10, 11, 13, 17 and 18, the STE steps of 12 and 13,
+   the examples' processes (each reports its own) and the shard ranks'
    sharded matmuls, served runs, training steps and pipeline (summed over
    the ranks), and read
    after it: LeNet-5, FFDNet and the shard ranks each launch every entry
    but fused_matmul[exact], the suites, spec, train, xattn, examples and
-   the ring, deepseek and ssm paths every fused entry, the serve path
-   K2[deficit], K2[stage1], K4 and (unfused) K1[stage1], full-depth
-   gemma3 K2[deficit];
-18. one JSON line each ``{"suites": {...}}``, ``{"serve": {...}}``,
+   the ring, deepseek, ssm, kimi and dense cut paths every fused entry,
+   the serve path K2[deficit], K2[stage1], K4 and (unfused) K1[stage1],
+   full-depth gemma3 and the whole dense models K2[deficit];
+20. one JSON line each ``{"suites": {...}}``, ``{"serve": {...}}``,
    ``{"spec": {...}}``, ``{"shard": {...}}``, ``{"gemma": {...}}``,
    ``{"deepseek": {...}}``, ``{"ssm": {...}}``, ``{"train": {...}}``,
-   ``{"xattn": {...}}``, ``{"examples": {...}}``, ``{"launch": {...}}``
-   and ``{"kernels": [...]}``;
+   ``{"xattn": {...}}``, ``{"kimi": {...}}``, ``{"dense": {...}}``,
+   ``{"examples": {...}}``, ``{"launch": {...}}`` and ``{"kernels":
+   [...]}``;
 then the ``nvidia-smi`` name and power limit, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure raises: the script exits
 non-zero and prints no result. It imports nothing of JAX.
@@ -394,7 +435,9 @@ PATH_NEEDS = {"suites": SUITE_VARIANTS, "serve": SERVE_VARIANTS,
               "gemma_ring": ARCH_VARIANTS, "deepseek": ARCH_VARIANTS,
               "ssm": ARCH_VARIANTS, "train": ARCH_VARIANTS,
               "xattn": ARCH_VARIANTS, "examples": SUITE_VARIANTS,
-              "shard": PATH_VARIANTS}
+              "shard": PATH_VARIANTS, "kimi": ARCH_VARIANTS,
+              "dense": [("fused_matmul", "deficit")],
+              "dense_cut": ARCH_VARIANTS}
 
 LENET_LAYERS = {  # (B, M, K, N) of each quantized matmul at batch 50
     "lenet5.c1": (50, 784, 25, 6), "lenet5.c2": (50, 196, 150, 16),
@@ -474,23 +517,38 @@ XATTN_LAYERS = {  # llama-3.2-vision-11b and musicgen-large: decode of 4
     "musicgen.decode.d": (4, 1, 2048, 2048),    # q, k, v, o
     "musicgen.decode.up": (4, 1, 2048, 8192),
     "musicgen.decode.down": (4, 1, 8192, 2048)}
+DENSE_LAYERS = {  # qwen1.5-32b, deepseek-coder-33b and kimi-k2-1t-a32b:
+    # decode of 4 slots; held for the LM routes only, as ARCH_LAYERS (the
+    # two big heads in RANK1's column tiles; kimi's experts are float)
+    "qwen.decode.d": (4, 1, 5120, 5120),         # q, k, v, o (40 KV heads)
+    "qwen.decode.gu": (4, 1, 5120, 27392),
+    "qwen.decode.down": (4, 1, 27392, 5120),
+    "qwen.decode.head": (4, 1, 5120, 152064),
+    "dscoder.decode.q": (4, 1, 7168, 7168),      # q, o
+    "dscoder.decode.kv": (4, 1, 7168, 1024),     # k, v; kimi's k, v too
+    "dscoder.decode.gu": (4, 1, 7168, 19200),
+    "dscoder.decode.down": (4, 1, 19200, 7168),
+    "dscoder.decode.head": (4, 1, 7168, 32256),
+    "kimi.decode.q": (4, 1, 7168, 8192),
+    "kimi.decode.o": (4, 1, 8192, 7168),
+    "kimi.decode.head": (4, 1, 7168, 163840)}
 # The train path (phase 12): the STE step's batch of 8 x 64 tokens
 # through each trained arch's projections and head, the (K, N) of the
 # decode shapes above (smollm-135m's o is its q's; deepseek-v2's experts
-# run as float products); phase 13's archs train at the same shapes. Their
-# plain versions take up to 24 s a call:
-# the kernel, its plain version and RANK1's operand build are each timed
-# over the one call that is checked, and TRAIN_REPS runs of the kernel
-# profiled.
+# run as float products); phase 13's archs train at the same shapes.
 TRAIN_ROWS = (8, 64)
 TRAIN_LAYERS = {
     label.replace(".decode.", ".train."): (*TRAIN_ROWS, k, n)
     for label, (_, _, k, n) in {**SERVE_LAYERS, **ARCH_LAYERS,
                                 **SSM_LAYERS, **XATTN_LAYERS}.items()
     if ".decode." in label}
-TRAIN_REPS = 1
+# At every LM route shape (the plain versions take up to seconds a call,
+# RANK1's plane build up to 0.4 s) the kernel, its plain version and
+# RANK1's operand build are each timed over the one call that is checked,
+# and LM_REPS runs of the kernel profiled.
+LM_REPS = 1
 LM_ROUTE_LAYERS = {**ARCH_LAYERS, **SSM_LAYERS, **XATTN_LAYERS,
-                   **TRAIN_LAYERS}
+                   **DENSE_LAYERS, **TRAIN_LAYERS}
 # RANK1's column tiles under a small budget (rank1_column_tiles): 24 tiles
 TILED_LAYER = ("smollm.decode.up", 576 * (8 + 104) * 64)
 TIMED_LAYERS = {**LAYERS, **SERVE_LAYERS, **VERIFY_LAYERS, **LM_SUITE_LAYERS,
@@ -612,6 +670,15 @@ def main() -> int:
     with Phase("xattn"):
         lines["xattn"], paths["xattn"] = xattn_phase(torch, detail, "cuda",
                                                      full=True, ops=ops)
+    torch.cuda.empty_cache()
+    with Phase("kimi"):
+        lines["kimi"], paths["kimi"] = kimi_phase(torch, detail, "cuda",
+                                                  full=True, ops=ops)
+    torch.cuda.empty_cache()
+    with Phase("dense"):
+        lines["dense"], dense_paths = dense_phase(torch, detail, "cuda",
+                                                  full=True, ops=ops)
+        paths.update(dense_paths)
     torch.cuda.empty_cache()
     with Phase("examples"):
         lines["examples"], paths["examples"], dry = examples_phase(torch, K)
@@ -918,11 +985,13 @@ def kernels_phase(torch, K, detail, ops):
     per_layer, timed = [], []
     wgen = torch.Generator(device=dev).manual_seed(0)
     for label, (bb, m, k, n) in shapes.items():
-        train = label in TRAIN_LAYERS
-        x, w, scale, bias = _operands(torch, gen, bb, m, k, n, dev,
-                                      wgen if train else None)
+        # the LM routes' shapes: w drawn on the card (up to 1.2 B int8),
+        # and each kernel, plain version and operand build timed over one
+        # call and profiled LM_REPS times
         arch = label in LM_ROUTE_LAYERS
-        reps = TRAIN_REPS if train else 5
+        x, w, scale, bias = _operands(torch, gen, bb, m, k, n, dev,
+                                      wgen if arch else None)
+        reps = LM_REPS if arch else 5
         for name, var, _ in ROWS:
             if arch and (name, var) not in ARCH_VARIANTS:
                 continue
@@ -945,8 +1014,6 @@ def kernels_phase(torch, K, detail, ops):
             if label in TIMED_LAYERS:
                 kern = functools.partial(_call, K, name, var, x, w, scale,
                                          bias, False, False)
-                # the LM routes' plain versions at full width take up to
-                # seconds a call: the one call checked is timed
                 pms = plain_once if arch else _ms(
                     torch, lambda: _call(K, name, var, x, w, scale, bias,
                                          False, True), 2)
@@ -964,13 +1031,13 @@ def kernels_phase(torch, K, detail, ops):
                     kms, lib = _ms_turns(torch, kern,
                                          lambda: torch._int_mm(x2, w), 5)
                 else:
-                    kms = kern_once if train else _ms(torch, kern, 5)
+                    kms = kern_once if arch else _ms(torch, kern, 5)
                 if var == "exact":
                     operands_ms = _ms(torch,
                                       lambda: K.exact_weight_operand(w), 5)
                 elif var == "rank1":
                     build = functools.partial(_rank1_operands, K, w)
-                    operands_ms = (_timed_once(torch, build)[1] if train
+                    operands_ms = (_timed_once(torch, build)[1] if arch
                                    else _ms(torch, build, 5))
                 bound, by = _bound(name, var, bb * m, k, n, fac, ops)
                 timed.append((kern, _launches_per_call(K, var, k, n), reps))
@@ -3014,7 +3081,7 @@ DSV2_SPEC = ("approx_deficit_pallas", 4, "approx_stage1_pallas")
 def ring_workload(vocab: int, full: bool, seed: int = 0):
     """Long prompts from the seeded ``token_stream`` whose decode wraps the
     local layers' rings: 4 requests into 2 slots (admission mid-decode),
-    prompts of 1,016-1,020 tokens, 10-14 new tokens each (every request
+    prompts of 1,020-1,023 tokens, 6-8 new tokens each (every request
     decodes to position 1,024 or past it, where the rings wrap), max_len
     1,088 (so that the rings hold the whole window of 1,024); the decode
     is kept short, since RANK1 takes about 1.5 s a step here. Without ``full``
@@ -3024,7 +3091,7 @@ def ring_workload(vocab: int, full: bool, seed: int = 0):
     rng = np.random.default_rng(seed + 13)
     n, slots = 4, 2
     if full:
-        (lo, hi), (nlo, nhi), max_len = (1016, 1021), (10, 15), 1088
+        (lo, hi), (nlo, nhi), max_len = (1020, 1024), (6, 9), 1088
     else:
         (lo, hi), (nlo, nhi), max_len = (5, 9), (8, 13), 24
     stream = synthetic.token_stream(n, hi, vocab, seed=seed)
@@ -3106,6 +3173,13 @@ def _arch_step(torch, K, eng, params, cfg, pos, backend, ops, fac,
         detail, f"{cfg.name} L{cfg.n_layers} {backend}", cfg, "decode",
         eng.slots, eng.max_len, med, pos=[int(p) for p in pos],
         cache_dtype=_cache_dtype(eng))
+    if cfg.n_experts:           # what the bound's bytes_min assumes
+        from repro_torch.nn import moe as MOE
+        row["experts_reached"] = _experts_reached(torch, MOE, step)
+        check(all(n <= min(cfg.n_experts, eng.slots * cfg.top_k)
+                  for n in row["experts_reached"]),
+              f"{cfg.name}: a decode step reached {row['experts_reached']} "
+              "experts")
     if backend in CUDA_BACKENDS:
         var = SERVE_KERNEL[backend]
         check(n == _step_launches(K, cfg, var),
@@ -3160,6 +3234,37 @@ def _bitwise_runs(label, runs, a, b):
               f"{label}: {a}'s logits at (rid, step) {key} differ from "
               f"{b}'s")
     return len(ra)
+
+
+def _oracle_cut(torch, PE, K, cfg0, params, short, slots, max_len, dev,
+                launches, label, backends) -> dict:
+    """Serves ``short`` under each of ``backends`` (a fresh engine each);
+    each CUDA backend's tokens and every sampled logits row must equal its
+    oracle's bit for bit. Returns the seconds of each serving and the rows
+    held per CUDA backend."""
+    import dataclasses
+    from repro_torch.quant import matmul as QM
+    from repro_torch.quant.quantize import for_lm
+    runs, out, t0 = {}, {"serving_s": {}, "oracle_bitwise_rows": {}}, \
+        time.perf_counter()
+    for be in backends:
+        cfg = dataclasses.replace(cfg0, quant=for_lm(be))
+        t1 = time.perf_counter()
+        _, toks, rec, _, _ = _serve_arch(torch, PE, K, cfg, params, short,
+                                         slots, max_len, dev, launches)
+        runs[be] = (toks, rec.rows)
+        out["serving_s"][be] = time.perf_counter() - t1
+        del rec
+    for be in CUDA_BACKENDS:
+        out["oracle_bitwise_rows"][be] = _bitwise_runs(
+            label, runs, be, QM.get_backend(be).oracle)
+    out["requests"] = len(short)
+    out["new"] = [m for _, _, m in short]
+    print(f"  {label} cut ({len(short)} requests, {short[0][2]} new tokens "
+          f"each; {time.perf_counter() - t0:.1f} s): each CUDA backend's "
+          f"tokens and all {out['oracle_bitwise_rows'][CUDA_BACKENDS[0]]} "
+          "sampled logits rows bitwise equal to its oracle's", flush=True)
+    return out
 
 
 def gemma_phase(torch, detail, dev: str, full: bool, ops=None) -> tuple:
@@ -3269,26 +3374,11 @@ def gemma_phase(torch, detail, dev: str, full: bool, ops=None) -> tuple:
     # the oracles, on the workload's first requests, cut short
     n_req, n_prompt, n_new = ORACLE_PREFIX if full else (2, 4, 4)
     short = [(rid, p[:n_prompt], n_new) for rid, p, _ in reqs[:n_req]]
-    oruns, t0 = {}, time.perf_counter()
-    for be in ("approx_lut", "approx_stage1") + CUDA_BACKENDS:
-        cfg = dataclasses.replace(cfg6, quant=for_lm(be))
-        t1 = time.perf_counter()
-        _, toks, rec, _, _ = _serve_arch(torch, PE, K, cfg, params, short,
-                                         slots, max_len, dev,
-                                         paths["gemma_ring"])
-        oruns[be] = (toks, rec.rows)
-        out["ring"].setdefault("oracle_prefix_s", {})[be] = \
-            time.perf_counter() - t1
-    for be in CUDA_BACKENDS:
-        oracle = "approx_stage1" if be == "approx_stage1_pallas" else \
-            "approx_lut"
-        n = _bitwise_runs("ring prefix", oruns, be, oracle)
-        out["ring"].setdefault("oracle_bitwise_rows", {})[be] = n
-    out["ring"]["oracle_prefix"] = {"requests": n_req, "prompt": n_prompt,
-                                    "new": n_new}
-    print(f"  ring prefix ({n_req} requests, {n_prompt} prompt tokens, "
-          f"{n_new} new; {time.perf_counter() - t0:.1f} s): each CUDA "
-          "backend's tokens and logits rows bitwise equal to its oracle's")
+    out["ring"]["oracle_prefix"] = {
+        "prompt": n_prompt, **_oracle_cut(
+            torch, PE, K, cfg6, params, short, slots, max_len, dev,
+            paths["gemma_ring"], f"gemma3 L{RING_DEPTH} ring prefix",
+            ("approx_lut", "approx_stage1") + CUDA_BACKENDS)}
 
     # the ring itself: bf16 rows against the cache-free forward
     cfg = dataclasses.replace(cfg6, quant=for_lm("bf16"))
@@ -3465,6 +3555,7 @@ SSM_ARCHS = {"rwkv6-3b": ((32, 2560, 40, 40, 8960, 65536, 0), 3_099_527_680),
              "hymba-1.5b": ((32, 1600, 25, 5, 5504, 32001, 1024),
                             1_345_537_600)}
 SSM_BACKENDS = ("bf16", "approx_deficit_pallas")
+SSM_SERVE_DEPTH = 8          # the servings' depth (of 32; the head whole)
 SSM_DEPTH = 4                # the oracle checks' depth (the head whole)
 SSM_ORACLES = ("approx_lut", "approx_stage1")
 # rwkv6's extra request: a prompt of three WKV chunks of 64, the last one
@@ -3612,11 +3703,11 @@ def _ssm_arch(torch, detail, dev, full, ops, arch, launches) -> dict:
               and cfg0.param_dtype == torch.bfloat16,
               f"unexpected {arch} config {cfg0}")
     else:       # a window longer than the smoke workload's cache, as 1,024
-        cfg0 = registry.reduced(arch, n_layers=6, param_dtype=torch.bfloat16,
+        cfg0 = registry.reduced(arch, n_layers=SSM_SERVE_DEPTH + 2,
+                                param_dtype=torch.bfloat16,
                                 local_window=64 if arch == "hymba-1.5b"
                                 else 0)
-    label = f"{arch} L{cfg0.n_layers}"
-    params, init = _init_arch(torch, TLM, cfg0, dev)
+    whole, init = _init_arch(torch, TLM, cfg0, dev)
     out = {"config": {"arch": arch, "n_layers": cfg0.n_layers,
                       "blocks": cfg0.blocks(), "d_model": cfg0.d_model,
                       "vocab": cfg0.vocab, "window": cfg0.local_window,
@@ -3629,10 +3720,16 @@ def _ssm_arch(torch, detail, dev, full, ops, arch, launches) -> dict:
     reqs, slots, max_len = ssm_workload(arch, cfg0.vocab, full)
     longest = max(reqs, key=lambda r: len(r[1]))[1]
 
-    # --- the whole model, unpaged at exact prompt lengths
-    runs, out["whole"] = {}, {}
+    # --- the first SSM_SERVE_DEPTH layers of the draw, unpaged at exact
+    # prompt lengths
+    cfg8 = dataclasses.replace(cfg0, n_layers=SSM_SERVE_DEPTH)
+    params = {**whole, "blocks": [TLM.map_leaves(
+        lambda t: t[:SSM_SERVE_DEPTH], whole["blocks"][0])]}
+    label = f"{arch} L{SSM_SERVE_DEPTH}"
+    out["served"] = {"n_layers": SSM_SERVE_DEPTH}
+    runs = {}
     for be in SSM_BACKENDS:
-        cfg = dataclasses.replace(cfg0, quant=for_lm(be))
+        cfg = dataclasses.replace(cfg8, quant=for_lm(be))
         eng, toks, rec, stats, peak = _serve_arch(
             torch, PE, K, cfg, params, reqs, slots, max_len, dev, launches)
         check(eng.prefix is None and not PE.padded_prefill_ok(cfg),
@@ -3647,12 +3744,12 @@ def _ssm_arch(torch, detail, dev, full, ops, arch, launches) -> dict:
             row.update(_arch_step(torch, K, eng, params, cfg,
                                   [40, 50, 60, 70], be, ops, fac,
                                   detail))
-        out["whole"][be] = row
+        out["served"][be] = row
         _print_arch(label, be, row)
         print(f"  {label} {be:22s} prefill of {len(longest)} tokens: median "
               f"{statistics.median(row['prefill_ms']):.1f} ms", flush=True)
         del eng, rec
-    cfg = dataclasses.replace(cfg0, quant=for_lm("bf16"))
+    cfg = dataclasses.replace(cfg8, quant=for_lm("bf16"))
     free = {"bfloat16_weights": _cache_free_rows(
         torch, TLM, params, cfg, reqs, runs["bf16"], dev)}
     # the same draw in float32: served under bf16 again, and held
@@ -3669,7 +3766,7 @@ def _ssm_arch(torch, detail, dev, full, ops, arch, launches) -> dict:
           f"{label}: served rows (float32 weights) differ from the "
           f"cache-free forward by {worst:.3g} of their range (tolerance "
           f"{SSM_RTOL})")
-    out["whole"]["bf16_vs_cache_free"] = free
+    out["served"]["bf16_vs_cache_free"] = free
     print(f"  {label} bf16: all {free['float32_weights']['rows']} sampled "
           f"rows within {worst:.3g} of their range of the cache-free forward "
           f"with float32 weights (tolerance {SSM_RTOL}); with bfloat16 "
@@ -3714,8 +3811,8 @@ def _ssm_arch(torch, detail, dev, full, ops, arch, launches) -> dict:
 def ssm_phase(torch, detail, dev: str, full: bool, ops=None) -> tuple:
     """rwkv6-3b and hymba-1.5b (see the module docstring, phase 11):
     ``full`` serves the published configs from seed 0 on the card; without
-    it the reduced ones (6 layers, hymba's window 64) on the CPU. Returns
-    the ssm line and the path's kernel launches."""
+    it the reduced ones (SSM_SERVE_DEPTH + 2 layers, hymba's window 64)
+    on the CPU. Returns the ssm line and the path's kernel launches."""
     from repro_torch.kernels import approx_matmul as K
     from repro_torch.nn import ssm as SSM
 
@@ -4489,6 +4586,261 @@ def xattn_phase(torch, detail, dev: str, full: bool, ops=None) -> tuple:
             torch.cuda.empty_cache()
     detail["xattn"] = out
     return out, launches
+
+
+# ---------------------------------------------------------------------------
+# Phases 17-18: kimi-k2-1t-a32b at depth 1; qwen1.5-32b and
+# deepseek-coder-33b whole
+# ---------------------------------------------------------------------------
+
+# (n_layers, d_model, n_heads, n_kv_heads, head_dim, n_experts, top_k,
+# n_shared, moe_d_ff, vocab) and the parameters of the published config at
+# KIMI_DEPTH: 36.21 GiB of bf16 (depth 2 would be 68.04 GiB, before the
+# head's and the experts' float32 transients)
+KIMI_ARCH = "kimi-k2-1t-a32b"
+KIMI_DEPTH = 1
+KIMI_FIELDS = ((1, 7168, 64, 8, 128, 384, 8, 1, 2048, 163840),
+               19_439_178_752)
+KIMI_BACKENDS = ("bf16",) + CUDA_BACKENDS
+# (n_layers, d_model, n_heads, n_kv_heads, d_ff, vocab, qkv_bias) and the
+# parameters of each published config, served whole
+DENSE_ARCHS = {"qwen1.5-32b": ((64, 5120, 40, 40, 27392, 152064, True),
+                               35_197_096_960),
+               "deepseek-coder-33b": ((62, 7168, 56, 8, 19200, 32256, False),
+                                      33_342_991_360)}
+DENSE_BACKEND = "approx_deficit_pallas"
+DENSE_DEPTH = 4              # the oracle checks' depth (the head whole)
+CUT_BACKENDS = ("bf16", "approx_lut", "approx_stage1") + CUDA_BACKENDS
+# the oracles' cut of the serve workload: its first CUT[0] requests, CUT[1]
+# new tokens each (the plain LUT gathers every (x, w) pair of the head)
+CUT = (2, 6)
+# qwen's q, k and v biases are zeros at init, as in the reference: the
+# phase draws them normal x BIAS_SCALE from a generator at ARCH_SEED + 1
+BIAS_SCALE = 0.02
+
+
+def _release(torch, dev: str) -> None:
+    """Frees what dropped engines and params held: an engine holds its
+    params in reference cycles, which only the collector frees."""
+    import gc
+    gc.collect()
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+
+
+def _free_before_draw(torch, dev: str, label: str, cfg) -> dict:
+    """Prints the card's free and total memory before ``cfg``'s draw and
+    fails unless its weights fit in what is free."""
+    from repro_torch.models import transformer_lm as TLM
+    from repro_torch.nn.module import n_params
+    need = n_params(TLM.descs(cfg)) * cfg.param_dtype.itemsize
+    _release(torch, dev)
+    if dev != "cuda":
+        return {"weights_gib": need / 2 ** 30}
+    free, total = torch.cuda.mem_get_info()
+    print(f"  {label}: mem_get_info before the draw: {free / 2 ** 30:.2f} "
+          f"GiB free of {total / 2 ** 30:.2f}; weights {need / 2 ** 30:.2f} "
+          "GiB", flush=True)
+    check(free > need, f"{label}: {free / 2 ** 30:.2f} GiB free, the "
+          f"weights need {need / 2 ** 30:.2f}")
+    return {"weights_gib": need / 2 ** 30, "free_gib": free / 2 ** 30,
+            "total_gib": total / 2 ** 30}
+
+
+def _seed_biases(torch, params, dev: str) -> float:
+    """Overwrites every layer's q, k and v biases with normal x BIAS_SCALE
+    values from a generator seeded at ARCH_SEED + 1 (the same values for
+    every backend that serves ``params``); returns their largest
+    magnitude."""
+    gen = torch.Generator().manual_seed(ARCH_SEED + 1)
+    big = 0.0
+    for group in params["blocks"]:
+        for layer in group.values():
+            attn = layer["attn"]
+            for key in ("bq", "bk", "bv"):
+                b = torch.randn(attn[key].shape, generator=gen) * BIAS_SCALE
+                attn[key] = b.to(attn[key].dtype).to(dev)
+                big = max(big, float(attn[key].abs().max()))
+    return big
+
+
+def _experts_reached(torch, MOE, step) -> list:
+    """Distinct experts that hold a kept token in each mixture-of-experts
+    layer during one call of ``step``."""
+    seen, route = [], MOE.route
+
+    def spy(params, x, cfg):
+        r = route(params, x, cfg)
+        seen.append(int(torch.unique(r["expert"][r["keep"]]).numel()))
+        return r
+
+    MOE.route = spy
+    try:
+        step()
+    finally:
+        MOE.route = route
+    return seen
+
+
+def _config_line(cfg, TLM, init) -> dict:
+    from repro_torch.nn.module import n_params
+    return {"config": {"arch": cfg.name, "n_layers": cfg.n_layers,
+                       "d_model": cfg.d_model, "n_heads": cfg.n_heads,
+                       "n_kv_heads": cfg.n_kv_heads, "vocab": cfg.vocab,
+                       "params": n_params(TLM.descs(cfg)),
+                       "param_dtype": str(cfg.param_dtype),
+                       "seed": ARCH_SEED}, **init}
+
+
+def kimi_phase(torch, detail, dev: str, full: bool, ops=None) -> tuple:
+    """kimi-k2-1t-a32b at depth KIMI_DEPTH (see the module docstring,
+    phase 17): the published widths from seed 0 when ``full``, else the
+    reduced config at depth 1 on the CPU. Returns the kimi line and the
+    path's kernel launches."""
+    import dataclasses
+    from repro_torch.configs import registry
+    from repro_torch.core import factor as F
+    from repro_torch.kernels import approx_matmul as K
+    from repro_torch.models import transformer_lm as TLM
+    from repro_torch.nn.module import n_params
+    from repro_torch.quant.quantize import for_lm
+    from repro_torch.serve import engine as PE
+
+    fac = F.factorize("proposed")
+    if full:
+        cfg0 = registry.get(KIMI_ARCH, n_layers=KIMI_DEPTH)
+        fields, count = KIMI_FIELDS
+        check((cfg0.n_layers, cfg0.d_model, cfg0.n_heads, cfg0.n_kv_heads,
+               cfg0.head_dim, cfg0.n_experts, cfg0.top_k, cfg0.n_shared,
+               cfg0.moe_d_ff, cfg0.vocab) == fields
+              and n_params(TLM.descs(cfg0)) == count
+              and cfg0.param_dtype == torch.bfloat16,
+              f"unexpected {KIMI_ARCH} config {cfg0}")
+    else:
+        cfg0 = registry.reduced(KIMI_ARCH, n_layers=KIMI_DEPTH,
+                                param_dtype=torch.bfloat16)
+    label = f"{KIMI_ARCH} L{cfg0.n_layers}"
+    mem = _free_before_draw(torch, dev, label, cfg0)
+    params, init = _init_arch(torch, TLM, cfg0, dev)
+    out = {**_config_line(cfg0, TLM, init), "memory": mem}
+    out["config"].update(n_experts=cfg0.n_experts, top_k=cfg0.top_k,
+                         n_shared=cfg0.n_shared)
+    print(f"  {label}: {out['config']['params']:,} parameters drawn in "
+          f"{init['init_s']:.1f} s (peak {init['init_peak_gb']} GiB)",
+          flush=True)
+    launches = {key: 0 for key in launch_counts(K)}
+    reqs, slots, max_len = serve_workload(cfg0.vocab, smoke=not full, seed=0)
+    for be in KIMI_BACKENDS:
+        cfg = dataclasses.replace(cfg0, quant=for_lm(be))
+        eng, toks, rec, stats, peak = _serve_arch(
+            torch, PE, K, cfg, params, reqs, slots, max_len, dev, launches)
+        check(eng.prefix is not None and stats["prefix_hit_rate"] > 0,
+              f"{label} {be}: no prefix-cache hit")
+        check(stats["waves"] >= 2, f"{label} {be}: no mid-decode admission")
+        row = _serving_row(rec, stats, peak, reqs)
+        if dev == "cuda":
+            row.update(_arch_step(torch, K, eng, params, cfg,
+                                  [40, 50, 60, 70], be, ops, fac, detail))
+        out[be] = row
+        _print_arch(label, be, row)
+        del eng, rec
+    reached = out[KIMI_BACKENDS[-1]].get("experts_reached")
+    if reached is not None:
+        print(f"  {label}: one decode step of {slots} slots reaches "
+              f"{reached} distinct experts of {cfg0.n_experts} (at most "
+              f"{min(cfg0.n_experts, slots * cfg0.top_k)})", flush=True)
+    short = [(rid, p, CUT[1]) for rid, p, _ in reqs[:CUT[0]]]
+    out["cut"] = _oracle_cut(torch, PE, K, cfg0, params, short, slots,
+                             max_len, dev, launches, label, CUT_BACKENDS)
+    out["serving"] = {"slots": slots, "max_len": max_len,
+                      "requests": len(reqs), "cache_dtype": "float32"}
+    detail["kimi"] = out
+    return out, launches
+
+
+def _dense_arch(torch, detail, dev, full, ops, arch, paths) -> dict:
+    """One dense arch (see the module docstring, phase 18)."""
+    import dataclasses
+    from repro_torch.configs import registry
+    from repro_torch.core import factor as F
+    from repro_torch.kernels import approx_matmul as K
+    from repro_torch.models import transformer_lm as TLM
+    from repro_torch.nn.module import n_params
+    from repro_torch.quant.quantize import for_lm
+    from repro_torch.serve import engine as PE
+
+    fac = F.factorize("proposed")
+    if full:
+        cfg0 = registry.get(arch)
+        fields, count = DENSE_ARCHS[arch]
+        check((cfg0.n_layers, cfg0.d_model, cfg0.n_heads, cfg0.n_kv_heads,
+               cfg0.d_ff, cfg0.vocab, cfg0.qkv_bias) == fields
+              and n_params(TLM.descs(cfg0)) == count
+              and cfg0.param_dtype == torch.bfloat16,
+              f"unexpected {arch} config {cfg0}")
+    else:
+        cfg0 = registry.reduced(arch, n_layers=DENSE_DEPTH + 2,
+                                param_dtype=torch.bfloat16)
+    label = f"{arch} L{cfg0.n_layers}"
+    mem = _free_before_draw(torch, dev, label, cfg0)
+    params, init = _init_arch(torch, TLM, cfg0, dev)
+    out = {**_config_line(cfg0, TLM, init), "memory": mem}
+    print(f"  {label}: {out['config']['params']:,} parameters drawn in "
+          f"{init['init_s']:.1f} s (peak {init['init_peak_gb']} GiB)",
+          flush=True)
+    if cfg0.qkv_bias:
+        out["bias_max_abs"] = _seed_biases(torch, params, dev)
+        check(out["bias_max_abs"] > 0, f"{label}: the biases are zeros")
+        print(f"  {label}: q, k, v biases drawn at ARCH_SEED + 1, largest "
+              f"magnitude {out['bias_max_abs']:.4g}", flush=True)
+    reqs, slots, max_len = serve_workload(cfg0.vocab, smoke=not full, seed=0)
+
+    # --- the whole model, once, with the prefix cache
+    cfg = dataclasses.replace(cfg0, quant=for_lm(DENSE_BACKEND))
+    eng, toks, rec, stats, peak = _serve_arch(
+        torch, PE, K, cfg, params, reqs, slots, max_len, dev, paths["dense"])
+    check(eng.prefix is not None and stats["prefix_hit_rate"] > 0,
+          f"{label}: no prefix-cache hit")
+    check(stats["waves"] >= 2, f"{label}: no mid-decode admission")
+    row = _serving_row(rec, stats, peak, reqs)
+    if dev == "cuda":
+        row.update(_arch_step(torch, K, eng, params, cfg, [40, 50, 60, 70],
+                              DENSE_BACKEND, ops, fac, detail))
+    out["whole"] = row
+    _print_arch(label, DENSE_BACKEND, row)
+    del eng, rec
+
+    # --- the first DENSE_DEPTH layers of the same draw (a copy: the whole
+    # model is dropped, for the oracles' full-width transients): the oracles
+    cut_cfg = dataclasses.replace(cfg0, n_layers=DENSE_DEPTH)
+    cut = {**params, "blocks": [TLM.map_leaves(
+        lambda t: t[:DENSE_DEPTH].clone(), params["blocks"][0])]}
+    del params
+    _release(torch, dev)
+    short = [(rid, p, CUT[1]) for rid, p, _ in reqs[:CUT[0]]]
+    out["cut"] = _oracle_cut(torch, PE, K, cut_cfg, cut, short, slots,
+                             max_len, dev, paths["dense_cut"],
+                             f"{arch} L{DENSE_DEPTH}", CUT_BACKENDS)
+    out["cut"]["n_layers"] = DENSE_DEPTH
+    out["serving"] = {"slots": slots, "max_len": max_len,
+                      "requests": len(reqs), "cache_dtype": "float32"}
+    return out
+
+
+def dense_phase(torch, detail, dev: str, full: bool, ops=None) -> tuple:
+    """qwen1.5-32b and deepseek-coder-33b (see the module docstring, phase
+    18): ``full`` serves the published configs whole from seed 0 on the
+    card; without it the reduced ones (6 layers) on the CPU. Returns the
+    dense line and the kernel launches of the 'dense' (whole models) and
+    'dense_cut' paths."""
+    from repro_torch.kernels import approx_matmul as K
+    paths = {p: {key: 0 for key in launch_counts(K)}
+             for p in ("dense", "dense_cut")}
+    out = {}
+    for arch in DENSE_ARCHS:
+        out[arch] = _dense_arch(torch, detail, dev, full, ops, arch, paths)
+    detail["dense"] = out
+    return out, paths
 
 
 # ---------------------------------------------------------------------------

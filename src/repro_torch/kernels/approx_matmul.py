@@ -79,6 +79,9 @@ TABLE_BYTES = -(-TABLE_ROWS * TABLE_STRIDE * 2 // 16) * 16
 ROW_TILES = (4, 8, 16, 32, 64)
 COL_TILES = (16, 32, 64)
 SMS = 132                  # streaming multiprocessors of an H100 SXM
+# elements of one chunk of a plain version's intermediate on the card:
+# large enough that its gathers, not their launches, set the pace
+CARD_CHUNK = 1 << 25
 
 
 # ---------------------------------------------------------------------------
@@ -472,11 +475,11 @@ def chunk_rows(k: int, n: int, device: torch.device,
     """(rows, cols) per chunk of an (M, K) x (K, N) product whose plain
     version builds an (rows, K, cols) intermediate: all N columns and as
     many rows as keep it under ``budget`` elements (default 2^20 on the
-    CPU, 2^23 on the card); past one row's K * N, one row and N in tiles
-    of ``budget // K`` columns. Output columns are independent, so the
-    tiling changes no result."""
+    CPU, CARD_CHUNK on the card); past one row's K * N, one row and N in
+    tiles of ``budget // K`` columns. Output columns are independent, so
+    the tiling changes no result."""
     if budget is None:
-        budget = 1 << 20 if device.type == "cpu" else 1 << 23
+        budget = 1 << 20 if device.type == "cpu" else CARD_CHUNK
     if k * n <= budget:
         return max(1, budget // max(1, k * n)), n
     return 1, max(1, budget // max(1, k))
@@ -494,27 +497,30 @@ def _tiled(m: int, n: int, rows: int, cols: int, fn, dtype, device):
 
 
 @functools.lru_cache(maxsize=64)
-def _deficit_flat(design: str, device: str) -> torch.Tensor:
-    """deficit_sum(|x|, |w|) for magnitudes in [0, 128], flat at
-    |x| * 129 + |w|, int32 on ``device``."""
-    return correction_matrix("deficit", design).reshape(-1).to(device)
+def _deficit_signed(design: str, device: str) -> torch.Tensor:
+    """sign(x) sign(w) deficit_sum(|x|, |w|) for every pair of int8 bytes,
+    flat at (x & 0xFF) * 256 + (w & 0xFF), int32 on ``device``: the
+    129 x 129 magnitude table with the pair's sign."""
+    b = torch.arange(256, dtype=torch.int32)
+    v = torch.where(b < 128, b, b - 256)
+    mag, sgn = v.abs(), v.sign()
+    table = correction_matrix("deficit", design)[mag[:, None], mag[None, :]]
+    return (table * sgn[:, None] * sgn[None, :]).reshape(-1).to(device)
 
 
 def _deficit_corr(x32, w32, design, budget: Optional[int] = None):
-    """sum_k sign(x) sign(w) deficit_sum(|x|, |w|), the deficit sums read
-    from their table over the 129 x 129 magnitude pairs, in (rows, cols)
-    chunks (``chunk_rows``)."""
+    """sum_k sign(x) sign(w) deficit_sum(|x|, |w|), each pair's term read
+    from its signed table (``_deficit_signed``) by an int32 index, in
+    (rows, cols) chunks (``chunk_rows``)."""
     m, k = x32.shape
     n = w32.shape[1]
     rows, cols = chunk_rows(k, n, x32.device, budget)
-    table = _deficit_flat(design, str(x32.device))
-    xm, xs = x32.abs().to(torch.int64) * TABLE_ROWS, x32.sign()
-    wm, ws = w32.abs().to(torch.int64), w32.sign()
+    table = _deficit_signed(design, str(x32.device))
+    xi, wi = (x32 & 0xFF) * 256, w32 & 0xFF
 
     def part(r0, r1, c0, c1):
-        d = torch.take(table, xm[r0:r1, :, None] + wm[None, :, c0:c1])
-        s = xs[r0:r1, :, None] * ws[None, :, c0:c1]
-        return (d * s).sum(dim=1, dtype=torch.int64)
+        return table[xi[r0:r1, :, None] + wi[None, :, c0:c1]].sum(
+            dim=1, dtype=torch.int64)
 
     return _tiled(m, n, rows, cols, part, torch.int64, x32.device)
 

@@ -105,19 +105,32 @@ def _init_one(d: ParamDesc, generator: torch.Generator,
     return out
 
 
+def _slices(shape, limit: int) -> list:
+    """Index tuples of the slices of a ``shape`` leaf of at most ``limit``
+    elements each: leading-axis ranges (``_row_chunks``), and where one
+    leading row alone holds more, that row sliced along the next axes the
+    same way (a (1, 384, 7168, 2048) expert stack of one layer is 5.6 B
+    elements)."""
+    if len(shape) < 2 or int(np.prod(shape[1:])) <= limit:
+        return [(slice(r0, r1),) for r0, r1 in _row_chunks(shape, limit)]
+    return [(slice(r, r + 1),) + inner for r in range(shape[0])
+            for inner in _slices(shape[1:], limit)]
+
+
 def _init_on_device(d: ParamDesc, generator: torch.Generator,
                     device: torch.device, limit: int) -> torch.Tensor:
     """One leaf drawn on ``device`` from a generator of its own, seeded by
-    one draw of the host ``generator``, slice by slice along its leading
-    axis (float32 slices of at most ``limit`` elements)."""
+    one draw of the host ``generator``, slice by slice (``_slices``:
+    float32 slices of at most ``limit`` elements)."""
     seed = int(torch.randint(0, 2 ** 62, (1,), generator=generator))
     gen = torch.Generator(device=device).manual_seed(seed)
     scale = _scale(d)
     out = torch.empty(d.shape, dtype=d.dtype, device=device)
-    for r0, r1 in _row_chunks(d.shape, limit):
-        out[r0:r1] = (torch.randn((r1 - r0, *d.shape[1:]), generator=gen,
-                                  dtype=torch.float32, device=device)
-                      * scale).to(d.dtype)
+    for idx in _slices(d.shape, limit):
+        part = out[idx]
+        out[idx] = (torch.randn(part.shape, generator=gen,
+                                dtype=torch.float32, device=device)
+                    * scale).to(d.dtype)
     return out
 
 

@@ -107,8 +107,8 @@ def _approx_error_lut(x_q, w_q, err_flat, budget=None):
     rows, cols = KA.chunk_rows(k, n, x_q.device, budget)
 
     def part(r0, r1, c0, c1):
-        idx = (xi[r0:r1, :, None] * 256 + wi[None, :, c0:c1]).long()
-        return torch.take(err_flat, idx).sum(dim=1, dtype=torch.int32)
+        idx = xi[r0:r1, :, None] * 256 + wi[None, :, c0:c1]     # int32
+        return err_flat[idx].sum(dim=1, dtype=torch.int32)
 
     return KA._tiled(m, n, rows, cols, part, torch.int32, x_q.device)
 

@@ -198,7 +198,8 @@ def test_extrapolation_equals_every_layer(arch, kind):
         assert fast[key] == slow[key], key
 
 
-@pytest.mark.parametrize("arch", ("smollm-135m", "gemma3-27b",
+@pytest.mark.parametrize("arch", ("smollm-135m", "qwen1.5-32b",
+                                  "deepseek-coder-33b", "gemma3-27b",
                                   "deepseek-v2-236b", "kimi-k2-1t-a32b",
                                   "rwkv6-3b", "hymba-1.5b",
                                   "llama-3.2-vision-11b", "musicgen-large"))

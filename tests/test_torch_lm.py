@@ -68,6 +68,10 @@ LOGIT_BACKENDS = ("bf16", "int8_exact", "approx_lut", "approx_stage1",
                   "msr4", "approx_deficit_pallas", "approx_stage1_pallas",
                   "approx_rank1_pallas")
 RNG = np.random.default_rng(14)
+# qwen1.5's q, k and v biases are zeros at init in both packages; the
+# parity tests draw them normal x BIAS_SCALE from BIAS_SEED, the same
+# values on both sides, so that the biases reach the logits
+BIAS_SEED, BIAS_SCALE = 1, 0.5
 
 
 def _ref_backend(name: str) -> str:
@@ -92,14 +96,34 @@ def _np(t: torch.Tensor) -> np.ndarray:
 
 
 @functools.lru_cache(maxsize=None)
-def _tiny(arch="smollm-135m", param_dtype="float32"):
-    """(JAX cfg, port cfg, JAX params, port params) of the reduced arch."""
+def _tiny(arch="smollm-135m", param_dtype="float32", biased=False):
+    """(JAX cfg, port cfg, JAX params, port params) of the reduced arch;
+    ``biased``: with its q, k and v biases drawn (``_with_biases``)."""
     rcfg = RR.reduced(arch, **TINY, param_dtype=getattr(jnp, param_dtype))
     pcfg = PR.reduced(arch, **TINY, param_dtype=getattr(torch, param_dtype))
     rparams = REFS.init(rcfg)
+    if biased:
+        rparams = _with_biases(rparams)
     pparams = params_from_jax(jax.tree.map(np.asarray, rparams),
                               device="cpu")
     return rcfg, pcfg, rparams, pparams
+
+
+def _with_biases(rparams):
+    """The JAX params with every ``bq``, ``bk`` and ``bv`` leaf drawn
+    normal x BIAS_SCALE by numpy from BIAS_SEED (in the tree's order)."""
+    rng = np.random.default_rng(BIAS_SEED)
+
+    def draw(path, leaf):
+        if getattr(path[-1], "key", None) not in ("bq", "bk", "bv"):
+            return leaf
+        return jnp.asarray(rng.normal(size=leaf.shape) * BIAS_SCALE,
+                           leaf.dtype)
+
+    out = jax.tree_util.tree_map_with_path(draw, rparams)
+    assert any(getattr(p[-1], "key", None) == "bq" for p, _ in
+               jax.tree_util.tree_leaves_with_path(out)), "no bias leaves"
+    return out
 
 
 def _tokens(b=2, s=8, seed=3):
@@ -212,6 +236,37 @@ def test_device_draw_of_large_leaves():
                          "cpu")["w"]
     assert not torch.equal(a, host)
     assert M.DEVICE_DRAW > 49152 * 576, "smollm-135m's numbers would move"
+
+
+def test_device_draw_slices_a_row_over_its_limit(monkeypatch):
+    """A leaf whose one leading row holds more than the limit (kimi-k2's
+    expert stack at depth 1: 1 x 384 x 7,168 x 2,048) is drawn in float32
+    slices of at most the limit along its next axes; a leaf whose rows fit
+    is drawn in leading-axis ranges, as before."""
+    sizes = []
+    randn = torch.randn
+
+    def spy(shape, **kw):
+        sizes.append(int(np.prod(shape)))
+        return randn(shape, **kw)
+
+    monkeypatch.setattr(torch, "randn", spy)
+    wide = M.ParamDesc((1, 6, 64, 48), ("layers", "experts", "embed", "mlp"))
+
+    def draw(d, limit):
+        sizes.clear()
+        return M._init_on_device(d, torch.Generator().manual_seed(0),
+                                 torch.device("cpu"), limit)
+
+    a = draw(wide, 2 * 64 * 48)
+    assert sizes == [2 * 64 * 48] * 3
+    assert torch.equal(a, draw(wide, 2 * 64 * 48))
+    assert abs(float(a.std()) / (6 * 64) ** -0.5 - 1) < 0.05
+    draw(wide, 64 * 48 - 1)
+    assert max(sizes) <= 64 * 48 - 1 and sum(sizes) == 6 * 64 * 48
+    rows = M.stack({"w": M.ParamDesc((64, 48), ("embed", "mlp"))}, 6)["w"]
+    draw(rows, 2 * 64 * 48)
+    assert sizes == [2 * 64 * 48] * 3
 
 
 def test_init_and_cache_trees_match_reference_shapes():
@@ -379,21 +434,24 @@ def test_attention_prefill_then_vector_pos_decode(backend):
 # Quantized projections: codes and accumulators bitwise
 # ---------------------------------------------------------------------------
 
-def _jax_layer0(rparams, toks, cfg):
-    """The seven projection inputs and weights of layer 0 in a cacheless
-    forward, composed from the JAX package's own functions in the order of
-    its ``_layer``."""
-    p = jax.tree.map(lambda t: t[0], rparams["blocks"][0])["k0_self"]
+def _jax_layer(p, x, cfg):
+    """The seven projection inputs and weights of one layer (params ``p``,
+    its q, k and v biases where it has them) in a cacheless forward from
+    the residual stream ``x``, and the layer's output, composed from the
+    JAX package's own functions in the order of its ``_layer``."""
     a, m, q = p["attn"], p["mlp"], cfg.quant
     ac = cfg.attn_cfg("self")
-    x = RT.embed_tokens(rparams, toks, cfg)
     h = RL.rmsnorm(p["ln1"], x)
     b, s, _ = h.shape
-    qh = RL.dense({"w": a["wq"]}, h, q).reshape(b, s, ac.n_heads, ac.head_dim)
-    kh = RL.dense({"w": a["wk"]}, h, q).reshape(b, s, ac.n_kv_heads,
-                                                ac.head_dim)
-    vh = RL.dense({"w": a["wv"]}, h, q).reshape(b, s, ac.n_kv_heads,
-                                                ac.head_dim)
+
+    def proj(w, bias, heads):
+        y = RL.dense({"w": a[w], **({"b": a[bias]} if bias in a else {})},
+                     h, q)
+        return y.reshape(b, s, heads, ac.head_dim)
+
+    qh = proj("wq", "bq", ac.n_heads)
+    kh = proj("wk", "bk", ac.n_kv_heads)
+    vh = proj("wv", "bv", ac.n_kv_heads)
     pos = RA.q_positions(None, b, s)
     out = RA._sdpa(RA.rope(qh, pos, ac.rope_theta),
                    RA.rope(kh, pos, ac.rope_theta), vh, pos, pos, 0,
@@ -403,17 +461,34 @@ def _jax_layer0(rparams, toks, cfg):
     hid = jax.nn.silu(RL.dense({"w": m["wg"]}, h2, q)) * RL.dense(
         {"w": m["wu"]}, h2, q)
     return ((h, a["wq"]), (h, a["wk"]), (h, a["wv"]), (out, a["wo"]),
-            (h2, m["wg"]), (h2, m["wu"]), (hid, m["wd"]))
+            (h2, m["wg"]), (h2, m["wu"]), (hid, m["wd"])), \
+        x2 + RL.dense({"w": m["wd"]}, hid, q)
 
 
-@functools.lru_cache(maxsize=None)
-def _jax_layer0_codes(backend: str, param_dtype: str = "float32"):
-    rcfg, _, rparams, _ = _tiny(param_dtype=param_dtype)
-    cfg = dataclasses.replace(rcfg, quant=RQ.for_lm(backend))
+def _jax_layer0(rparams, toks, cfg):
+    """Layer 0's seven projection inputs and weights (``_jax_layer``)."""
+    p = jax.tree.map(lambda t: t[0], rparams["blocks"][0])["k0_self"]
+    return _jax_layer(p, RT.embed_tokens(rparams, toks, cfg), cfg)[0]
 
+
+def _jax_projections(rparams, toks, cfg):
+    """Every projection of a cacheless forward, layer by layer
+    (``_jax_layer``), then the untied head's (final norm, table.T)."""
+    stack = rparams["blocks"][0]["k0_self"]
+    x = RT.embed_tokens(rparams, toks, cfg)
+    pairs = []
+    for i in range(cfg.n_layers):
+        layer, x = _jax_layer(jax.tree.map(lambda t: t[i], stack), x, cfg)
+        pairs += layer
+    h = RL.rmsnorm(rparams["final_ln"], x)
+    return pairs + [(h, rparams["lm_head"]["table"].T)]
+
+
+def _jax_codes_of(projections, rparams, cfg):
+    """int8 codes and int32 sums of each (x, w) ``projections`` gives."""
     def run(params, toks):
         res = []
-        for x, w in _jax_layer0(params, toks, cfg):
+        for x, w in projections(params, toks, cfg):
             xq, _ = RQ.quantize_dynamic(x.reshape(-1, x.shape[-1]), axis=-1)
             wq, _ = RQ.quantize_dynamic(w, axis=0)
             res.append((xq, RQM.integer_matmul(xq, wq, cfg.quant)))
@@ -421,6 +496,24 @@ def _jax_layer0_codes(backend: str, param_dtype: str = "float32"):
 
     out = jax.jit(run)(rparams, jnp.asarray(_tokens()))
     return [(np.asarray(xq), np.asarray(acc)) for xq, acc in out]
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_layer0_codes(backend: str, param_dtype: str = "float32"):
+    rcfg, _, rparams, _ = _tiny(param_dtype=param_dtype)
+    return _jax_codes_of(_jax_layer0, rparams,
+                         dataclasses.replace(rcfg,
+                                             quant=RQ.for_lm(backend)))
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_every_code(backend: str, arch: str):
+    """The codes and sums of every projection of ``arch`` with its biases
+    drawn (``_tiny(arch, biased=True)``)."""
+    rcfg, _, rparams, _ = _tiny(arch, biased=True)
+    return _jax_codes_of(_jax_projections, rparams,
+                         dataclasses.replace(rcfg,
+                                             quant=RQ.for_lm(backend)))
 
 
 class _Spy:
@@ -492,10 +585,11 @@ def test_bf16_params_codes_bitwise_and_logits_close(monkeypatch):
 # ---------------------------------------------------------------------------
 
 @functools.lru_cache(maxsize=None)
-def _jax_logits(backend: str, arch="smollm-135m", param_dtype="float32"):
+def _jax_logits(backend: str, arch="smollm-135m", param_dtype="float32",
+                biased=False):
     """JAX prefill of tokens[:, :-1] into a fresh cache, then a decode step
     of tokens[:, -1] at a (B,) position vector: both logits."""
-    rcfg, _, rparams, _ = _tiny(arch, param_dtype)
+    rcfg, _, rparams, _ = _tiny(arch, param_dtype, biased)
     cfg = dataclasses.replace(rcfg, quant=RQ.for_lm(backend))
     toks = jnp.asarray(_tokens())
 
@@ -511,8 +605,9 @@ def _jax_logits(backend: str, arch="smollm-135m", param_dtype="float32"):
     return tuple(np.asarray(t) for t in jax.jit(run)(rparams))
 
 
-def _port_logits(backend: str, arch="smollm-135m", param_dtype="float32"):
-    _, pcfg, _, pparams = _tiny(arch, param_dtype)
+def _port_logits(backend: str, arch="smollm-135m", param_dtype="float32",
+                 biased=False):
+    _, pcfg, _, pparams = _tiny(arch, param_dtype, biased)
     cfg = dataclasses.replace(pcfg, quant=for_lm(backend))
     toks = torch.from_numpy(_tokens())
     c = PT.init_cache(cfg, 2, 16, getattr(torch, param_dtype), device="cpu")
@@ -531,14 +626,44 @@ def test_prefill_decode_logits_match_reference(backend):
         _close(g, w, LOGIT_RTOL)
 
 
+@pytest.mark.parametrize("backend", ["bf16", "approx_lut",
+                                     "approx_deficit_pallas"])
 @pytest.mark.parametrize("arch", ["qwen1.5-32b", "deepseek-coder-33b"])
-def test_other_dense_archs_match_reference(arch):
+def test_other_dense_archs_match_reference(monkeypatch, arch, backend):
     """The two other dense global-attention configs run the same code:
     qwen1.5 with QKV biases, deepseek-coder with rope_theta 1e5 and an
-    untied head."""
-    for got, want in zip(_port_logits("bf16", arch),
-                         _jax_logits("bf16", arch)):
-        _close(got, want, LOGIT_RTOL)
+    untied head. qwen's biases are drawn nonzero (``_with_biases``), the
+    same values in both packages' params: prefill and decode logits agree
+    within LOGIT_RTOL of their range, and the biases move them by more
+    than ten times that. Under a quantized backend every projection of a
+    cacheless forward (both layers' q, k, v, o, gate, up, down and the
+    head) has the JAX package's int8 codes and int32 sums, bit for bit."""
+    biased = arch == "qwen1.5-32b"
+    got = _port_logits(backend, arch, biased=biased)
+    for g, w in zip(got, _jax_logits(_ref_backend(backend), arch,
+                                     biased=biased)):
+        _close(g, w, LOGIT_RTOL)
+    if not biased:
+        return
+    moved = max(float(np.abs(g - z).max() / np.ptp(z))
+                for g, z in zip(got, _port_logits(backend, arch)))
+    assert moved > 10 * LOGIT_RTOL, moved
+    if backend == "bf16":
+        return
+    _, pcfg, _, pparams = _tiny(arch, biased=True)
+    cfg = dataclasses.replace(pcfg, quant=for_lm(backend))
+    spy = _Spy(monkeypatch)
+    h, _, _ = PT.backbone(pparams, PT.embed_tokens(
+        pparams, torch.from_numpy(_tokens()), cfg), cfg)
+    PT.lm_logits(pparams, h, cfg)
+    want = _jax_every_code(_ref_backend(backend), arch)
+    assert len(spy.calls) == len(want) == 2 * 7 + 1
+    for i, ((x, w), (wxq, wacc)) in enumerate(zip(spy.calls, want)):
+        xq, acc = _port_codes(x, w, backend)
+        np.testing.assert_array_equal(xq.numpy(), wxq,
+                                      err_msg=f"{backend} projection {i}")
+        np.testing.assert_array_equal(acc.numpy(), wacc,
+                                      err_msg=f"{backend} projection {i}")
 
 
 def test_forward_loss_matches_reference():
